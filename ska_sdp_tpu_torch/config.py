@@ -1,0 +1,36 @@
+"""Configuration surface (port of ``ska_sdp_tpu/config.py``, the parts the
+IDG imaging path reads)."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+from .types import Precision, precision
+
+
+@dataclasses.dataclass(frozen=True)
+class GridParams:
+    """Field of view and grid resolution; ``n = round(theta * lam)``
+    (θ=0.008, lam=300000 gives the 2400² SKA1-Low grid)."""
+
+    theta: float = 0.008
+    lam: int = 300000
+
+    @property
+    def n(self) -> int:
+        # Python round() is round-half-to-even, like the reference
+        return int(round(self.theta * self.lam))
+
+
+@dataclasses.dataclass(frozen=True)
+class ImagingConfig:
+    """Pipeline configuration (CLI surface)."""
+
+    grid: GridParams = GridParams()
+    precision_name: str = "single"
+    n_vis: Optional[int] = None  # visibility-count cap (CLI -n); None = all
+
+    @property
+    def precision(self) -> Precision:
+        return precision(self.precision_name)  # type: ignore[arg-type]
