@@ -266,6 +266,6 @@ extern "C" int idg_grid_stream(const void* recs, long long n_stride,
   }
 }
 
-extern "C" const char* idg_cuda_error_string(int code) {
+extern "C" const char* idg_grid_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

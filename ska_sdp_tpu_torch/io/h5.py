@@ -29,6 +29,23 @@ def read_dataset(path: str, name: str, dtype=None) -> np.ndarray:
     return arr if dtype is None else arr.astype(dtype)
 
 
+def read_datasets_stacked(path: str, names, dtype=None) -> np.ndarray:
+    """Read same-shape datasets and stack them on a new leading axis."""
+    import h5py
+
+    with h5py.File(fix_ext(path), "r") as f:
+        out = np.stack([np.asarray(f[n]) for n in names], axis=0)
+    return out if dtype is None else out.astype(dtype)
+
+
+def list_group(path: str, group: str) -> list[str]:
+    """Member names of an HDF5 group."""
+    import h5py
+
+    with h5py.File(fix_ext(path), "r") as f:
+        return list(f[group].keys())
+
+
 def write_dataset(path: str, name: str, data: np.ndarray) -> None:
     """Create (or overwrite) a dataset, creating parent groups as needed."""
     import h5py

@@ -1,5 +1,6 @@
-"""Synthetic SKA1-Low-style observations (port of the visibility part of
-``ska_sdp_tpu/io/synthetic.py``).
+"""Synthetic SKA1-Low-style observations (port of the visibility and
+A-kernel parts of ``ska_sdp_tpu/io/synthetic.py``; no w-kernel bank, which
+nothing in the port reads yet).
 
 Antennas on a random compact layout, Earth-rotation uvw tracks, and
 visibilities of a few point sources from the measurement equation
@@ -8,11 +9,13 @@ visibilities of a few point sources from the measurement equation
 
 so imaging tests can check that the sources reappear at ``(l_s, m_s)``.
 Everything is numpy float64 on the host, seeded by ``cfg.seed``; the same
-seed gives the same arrays as the reference package.
+seed gives the same arrays as the reference package.  A-kernels are
+near-delta per-antenna stamps with small seeded perturbations.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -34,6 +37,7 @@ class SyntheticConfig:
     # uv box (~0.42·lam wavelengths)
     max_baseline_m: float | None = None
     nsources: int = 5
+    akern_size: int = 15          # A-kernel stamp side
     seed: int = 1234
 
 
@@ -111,3 +115,36 @@ def write_vis_file(path: str, obs: dict) -> None:
     h5.write_dataset(path, schema.VIS_TIME, obs["time"].astype(np.float64))
     h5.write_dataset(path, schema.VIS_FREQUENCY,
                      obs["frequency"].astype(np.float64))
+
+
+def write_akern_file(path: str, obs: dict, cfg: SyntheticConfig) -> None:
+    """Near-delta A-kernels per antenna at two times and two frequencies
+    (the reference's file, byte for byte, from the same seed)."""
+    rng = np.random.default_rng(cfg.seed + 1)
+    h5.create_file(path)
+    s = cfg.akern_size
+    t0 = float(obs["time"][0])
+    times = [t0, t0 + 0.02]
+    freqs = [float(obs["frequency"][0]), float(obs["frequency"][0]) * 1.1]
+    for ant in range(cfg.nant):
+        for tt in times:
+            for ff in freqs:
+                k = np.zeros((s, s), dtype=np.complex128)
+                k[s // 2, s // 2] = 1.0
+                k += 0.01 * (rng.standard_normal((s, s))
+                             + 1j * rng.standard_normal((s, s)))
+                h5.write_dataset(path, schema.akern_dataset(
+                    cfg.theta, str(ant), schema.fmt_float(tt),
+                    schema.fmt_float(ff)), k)
+
+
+def generate_dataset(dirpath: str, cfg: SyntheticConfig = SyntheticConfig()):
+    """Write ``vis.h5`` and ``akern.h5`` (no ``wkern.h5``: nothing in the
+    port reads a w-kernel bank yet); returns ``(paths dict, obs dict)``."""
+    os.makedirs(dirpath, exist_ok=True)
+    obs = simulate_observation(cfg)
+    paths = {"vis": os.path.join(dirpath, "vis.h5"),
+             "akern": os.path.join(dirpath, "akern.h5")}
+    write_vis_file(paths["vis"], obs)
+    write_akern_file(paths["akern"], obs, cfg)
+    return paths, obs

@@ -1,12 +1,14 @@
-"""Gridder dispatch (port of the IDG part of ``ska_sdp_tpu/kernels/__init__.py``).
+"""Gridder and degridder dispatch (port of the IDG and IDG-AW parts of
+``ska_sdp_tpu/kernels/__init__.py``).
 
-Plain IDG rides the streamed run gridder with unit screens and zero pair
+Plain IDG rides the streamed run kernels with unit screens and zero pair
 ids: every record keys to (pair 0, uv tile), runs are the occupied tiles
-and ``conj(1·1) = 1`` keeps the operator exact continuous-w IDG.
+and ``conj(1·1) = 1`` keeps the operator exact continuous-w IDG.  IDG-AW
+rides the same kernels with per-antenna screens.
 
 Dropped records are counted per gridder and reported once per gridder on
 stderr.  The port has no slower route to fall back to: shapes outside the
-streamed kernel's envelope raise ``NotImplementedError``.
+streamed kernels' envelope raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import torch
 
 from ..ops.idg_aw import auto_fit_margin
 from .idg_aw_records import STREAM_SUBGRIDS
-from .idg_aw_stream import idg_aw_gridder_stream
+from .idg_aw_stream import idg_aw_degridder_stream, idg_aw_gridder_stream
 
 _drop_counts: dict[str, int] = {}
 _warned: set[str] = set()
@@ -62,6 +64,13 @@ def _idg_unit_run_bound(grid_shape, subgrid: int, support: int):
     return ((max(grid_shape) + 2 * subgrid) // tc + 2) ** 2 + 64
 
 
+def _check_idg_support(subgrid: int, support: int) -> None:
+    if support > subgrid // 2 + 1:
+        raise ValueError(
+            f"IDG needs support <= subgrid/2+1; got s={support}, "
+            f"S={subgrid} — use a larger subgrid")
+
+
 def idg_gridder(grid_shape, p: torch.Tensor, w: torch.Tensor,
                 vis: torch.Tensor, *, theta: float, subgrid: int = 64,
                 support: int = 15, taper_beta: float = 12.0):
@@ -73,10 +82,7 @@ def idg_gridder(grid_shape, p: torch.Tensor, w: torch.Tensor,
     by construction inside the envelope, since the run bound covers every
     tile.  The dirty image must be divided by the fine taper
     (``ops.idg.taper_fine``)."""
-    if support > subgrid // 2 + 1:
-        raise ValueError(
-            f"IDG needs support <= subgrid/2+1; got s={support}, "
-            f"S={subgrid} — use a larger subgrid")
+    _check_idg_support(subgrid, support)
     mr = _idg_unit_run_bound(grid_shape, subgrid, support)
     if mr is None:
         raise NotImplementedError(
@@ -91,3 +97,77 @@ def idg_gridder(grid_shape, p: torch.Tensor, w: torch.Tensor,
         grid_shape, p, zer, zer, w, vis, scr, theta=theta, subgrid=subgrid,
         support=support, taper_beta=taper_beta, max_runs=mr)
     return guv, n_dropped
+
+
+def idg_degridder(grid_shape, p: torch.Tensor, w: torch.Tensor,
+                  grid: torch.Tensor, *, theta: float, subgrid: int = 64,
+                  support: int = 15, taper_beta: float = 12.0):
+    """Image-domain degridding (exact continuous-w predict) of the
+    ``[N, Nx]`` grid at scaled baselines ``p`` ``[n, 3]`` and ``w`` in
+    wavelengths, on the inputs' device: the adjoint of :func:`idg_gridder`.
+
+    Returns ``(vis [n] complex64, n_dropped)``; ``n_dropped`` is zero by
+    construction inside the envelope.  The model grid must already be
+    divided by the fine taper (``ops.idg.taper_fine``)."""
+    _check_idg_support(subgrid, support)
+    mr = _idg_unit_run_bound(grid_shape, subgrid, support)
+    if mr is None:
+        raise NotImplementedError(
+            f"IDG degridding at subgrid={subgrid}, support={support} is "
+            f"outside the streamed degridder's envelope (S in "
+            f"{STREAM_SUBGRIDS}, fit margin >= 5); the fixed-tile IDG "
+            "degrid kernel that serves it "
+            "(ska_sdp_tpu/kernels/idg_degrid_pallas.py) is not ported yet")
+    zer = torch.zeros((p.shape[0],), dtype=torch.int32, device=p.device)
+    scr = torch.ones((1, subgrid, subgrid), dtype=torch.complex64,
+                     device=p.device)
+    return idg_aw_degridder_stream(
+        grid_shape, p, zer, zer, w, grid, scr, theta=theta, subgrid=subgrid,
+        support=support, taper_beta=taper_beta, max_runs=mr)
+
+
+def _check_aw_subgrid(subgrid: int) -> None:
+    """The IDG-AW routes take exactly the streamed kernels' subgrids; the
+    reference serves the others with its XLA realization
+    (``ska_sdp_tpu/ops/idg_aw.py``), which the port has no counterpart
+    of.  No margin floor applies: drops are counted, not refused."""
+    if subgrid not in STREAM_SUBGRIDS:
+        raise NotImplementedError(
+            f"IDG-AW at subgrid={subgrid} is outside the streamed kernels' "
+            f"envelope {STREAM_SUBGRIDS}; the reference's XLA IDG-AW "
+            "(ska_sdp_tpu/ops/idg_aw.py) that serves it is not ported")
+
+
+def idg_aw_gridder(grid_shape, p, a1, a2, w, vis, screens, *, theta: float,
+                   subgrid: int = 64, support: int = 15,
+                   taper_beta: float = 12.0, max_runs: int = 4096,
+                   fit_margin: int = 0, ordered: bool = False):
+    """IDG-AW gridding: image-domain antenna screens ``[nant, S, S]`` on
+    (pair, uv-tile) runs, through the streamed CUDA gridder.
+
+    ``ordered=True``: the caller guarantees a pair-major record stream, so
+    the prep skips its sort; a poorly ordered stream overflows
+    ``max_runs`` and the surplus is counted.  Returns ``(guv [N, Nx]
+    complex64, n_dropped)``; callers must surface ``n_dropped``.  The grid
+    lives in device memory, so there is no banded route."""
+    _check_aw_subgrid(subgrid)
+    return idg_aw_gridder_stream(
+        grid_shape, p, a1, a2, w, vis, screens, theta=theta,
+        subgrid=subgrid, support=support, taper_beta=taper_beta,
+        max_runs=max_runs, fit_margin=fit_margin, ordered=ordered)
+
+
+def idg_aw_degridder(grid_shape, p, a1, a2, w, grid, screens, *,
+                     theta: float, subgrid: int = 64, support: int = 15,
+                     taper_beta: float = 12.0, max_runs: int = 4096,
+                     fit_margin: int = 0):
+    """IDG-AW degridding (model predict with direction-dependent antenna
+    terms), the exact adjoint of :func:`idg_aw_gridder`, through the
+    streamed CUDA degridder.  Returns ``(vis [n] complex64, n_dropped)``;
+    dropped records predict 0 and callers count them with
+    :func:`_note_drops`."""
+    _check_aw_subgrid(subgrid)
+    return idg_aw_degridder_stream(
+        grid_shape, p, a1, a2, w, grid, screens, theta=theta,
+        subgrid=subgrid, support=support, taper_beta=taper_beta,
+        max_runs=max_runs, fit_margin=fit_margin)

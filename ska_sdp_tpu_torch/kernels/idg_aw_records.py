@@ -1,6 +1,7 @@
 """IDG(-AW) run prep: sort records into (pair, uv-tile) runs and build the
 run table (port of the prep half of ``ska_sdp_tpu/kernels/idg_aw_pallas.py``:
-``idg_aw_run_records`` and ``_run_csr``).
+``idg_aw_run_records`` and ``_run_csr``, and of
+``ska_sdp_tpu/kernels/idg_aw_degrid_pallas.py::idg_aw_degrid_records``).
 
 Plain tensor work on the records' device: one stable sort (a fused
 single int32 key when ``nant`` allows it, as the reference does) and a
@@ -8,9 +9,10 @@ single int32 key when ``nant`` allows it, as the reference does) and a
 (``starts``, ``ends``, ``y0``, ``x0``, ``ia1``, ``ia2``, ``n_dropped``) are
 the reference's exactly.
 
-Records are held as ``[5, n]`` float32 rows ``(dy, dx, w, vis_re,
-vis_im)`` in sorted order; the reference's padded ``[8, n_pad]`` TPU
-layout is not kept.
+Gridder records are held as ``[5, n]`` float32 rows ``(dy, dx, w,
+vis_re, vis_im)`` in sorted order, degridder records as ``[3, n]`` rows
+``(dy, dx, w)`` with the sort permutation beside them; the reference's
+padded ``[8, n_pad]`` TPU layout is not kept.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import torch
 
 from ..ops.idg_aw import PAIR_SHIFT, SENTINEL, _record_keys
 
-# Subgrid sizes the streamed gridder takes.
+# Subgrid sizes the streamed gridder and degridder take.
 STREAM_SUBGRIDS = (32, 64, 128)
 
 
@@ -29,8 +31,8 @@ def _run_csr(pk_s, tk_s, n: int, max_runs: int, Tc: int, ntx_t: int,
     """Run boundaries → run table (CSR) and per-run scalars from the sorted
     key streams (runs are contiguous in sorted order).
 
-    Returns ``(starts, ends, y0, x0, ia1, ia2 [max_runs], overflow [n])``,
-    all int32 except the bool ``overflow``.
+    Returns ``(starts_ext [max_runs + 1], starts, ends, y0, x0, ia1, ia2
+    [max_runs], overflow [n])``, all int32 except the bool ``overflow``.
     """
     i32 = torch.int32
     new_run = torch.ones((n,), dtype=i32, device=pk_s.device)
@@ -54,7 +56,7 @@ def _run_csr(pk_s, tk_s, n: int, max_runs: int, Tc: int, ntx_t: int,
     pk_run = pk_s[f]
     ia1 = pk_run // PAIR_SHIFT
     ia2 = pk_run - ia1 * PAIR_SHIFT
-    return starts, ends, y0, x0, ia1, ia2, overflow
+    return starts_ext, starts, ends, y0, x0, ia1, ia2, overflow
 
 
 def idg_aw_run_records(grid_shape, p, a1, a2, w, vis_re, vis_im, *,
@@ -119,7 +121,7 @@ def idg_aw_run_records(grid_shape, p, a1, a2, w, vis_re, vis_im, *,
         recs = rows[:, perm]
         pk_s, tk_s = pkey[perm], tkey[perm]
 
-    starts, ends, y0, x0, ia1, ia2, overflow = _run_csr(
+    _, starts, ends, y0, x0, ia1, ia2, overflow = _run_csr(
         pk_s, tk_s, n, max_runs, Tc, ntx_t, S, HP, WP)
     # disjoint: unfit records carry the sentinel, so the overflow term
     # (placeable records only) never counts them twice
@@ -150,3 +152,57 @@ def from_jax_run_records(recs, starts, ends, y0, x0, ia1, ia2, n_dropped,
     return (rows, i32(starts), i32(ends), i32(y0), i32(x0), i32(ia1),
             i32(ia2), torch.as_tensor(int(np.asarray(n_dropped)),
                                       device=device))
+
+
+def idg_aw_degrid_records(grid_shape, p, a1, a2, w, *, subgrid: int = 64,
+                          support: int = 15, max_runs: int = 4096,
+                          fit_margin: int = 0):
+    """Sort records into (pair, uv-tile) runs for the streamed degridder,
+    carrying each record's original index (the degrid twin of
+    :func:`idg_aw_run_records`).
+
+    The sort is the reference's two-key stable sort, as one int64 key: the
+    fused int32 key would order the sentinel records differently, and
+    ``order_s`` must match the reference exactly.
+
+    Returns ``(recs [3, n] float32 rows dy/dx/w in sorted order,
+    starts_ext [max_runs + 1], y0, x0, ia1, ia2 [max_runs] int32, order_s
+    [n] int32 original index of each sorted record, use [n] bool
+    original-order output mask, n_dropped (0-dim int64))``.  Runs are
+    ``[starts_ext[r], min(starts_ext[r + 1], n))``.
+    """
+    n = p.shape[0]
+    if n == 0:
+        raise ValueError("idg_aw_degrid_records needs at least one record")
+    (pkey, tkey, dy, dx, valid, fit, Tc, ntx_t,
+     HP, WP) = _record_keys(grid_shape, p, a1, a2, subgrid, support,
+                            fit_margin)
+    key = pkey.to(torch.int64) * 2**31 + tkey.to(torch.int64)
+    _, perm = torch.sort(key, stable=True)
+    pk_s, tk_s = pkey[perm], tkey[perm]
+    recs = torch.stack([dy, dx, w.to(torch.float32)])[:, perm].contiguous()
+    starts_ext, _, _, y0, x0, ia1, ia2, overflow = _run_csr(
+        pk_s, tk_s, n, max_runs, Tc, ntx_t, subgrid, HP, WP)
+    n_dropped = (torch.sum(valid & ~fit)
+                 + torch.sum(overflow & (pk_s < SENTINEL)))
+    return (recs, starts_ext, y0, x0, ia1, ia2, perm.to(torch.int32),
+            valid & fit, n_dropped)
+
+
+def from_jax_degrid_records(recs, starts_ext, y0, x0, ia1, ia2, order_s,
+                            use, n_dropped, device=None):
+    """The port's degrid records from the reference prep's numpy outputs
+    (``idg_aw_degrid_records``): the ``[nblk, 8, C]`` blocks become
+    ``[3, n]`` rows (the padding records, outside every run, are cut).
+    Returns the tuple of :func:`idg_aw_degrid_records`."""
+    order = np.asarray(order_s, np.int32)
+    n = order.shape[0]
+    r = np.asarray(recs, np.float32).transpose(1, 0, 2).reshape(8, -1)
+
+    def i32(a):
+        return torch.as_tensor(np.array(a, np.int32), device=device)
+
+    return (torch.as_tensor(np.array(r[:3, :n]), device=device),
+            i32(starts_ext), i32(y0), i32(x0), i32(ia1), i32(ia2), i32(order),
+            torch.as_tensor(np.array(use, bool), device=device),
+            torch.as_tensor(int(np.asarray(n_dropped)), device=device))

@@ -1,6 +1,6 @@
 """Image-domain gridding helpers (port of ``ska_sdp_tpu/ops/idg.py``): the
-Kaiser subgrid taper, its fine-grid divisor, the padded-FOV plan, and the
-centred DFT matrix.
+Kaiser subgrid taper, its fine-grid divisor, the padded-FOV plan (both
+directions), and the centred DFT matrix.
 
 IDG multiplies every subgrid image by a separable taper ``t(l)·t(m)`` and
 divides the final dirty image by the taper's band-limited interpolation
@@ -69,6 +69,18 @@ def fov_pad_finish(img: torch.Tensor, n: int, n_grid: int, crop_lo: int):
         return img
     img = img * ((n_grid / n) ** 2)
     return img[crop_lo:crop_lo + n, crop_lo:crop_lo + n]
+
+
+def fov_pad_start(img: torch.Tensor, n: int, n_grid: int, crop_lo: int):
+    """Predict-direction companion of :func:`fov_pad_finish`: embed the
+    target-FOV model image in the padded grid, zeros outside.  No
+    rescale: the forward FFT is unnormalised, so each model pixel gives
+    the same phase ramp whatever the grid size."""
+    if n_grid == n:
+        return img
+    out = img.new_zeros((n_grid, n_grid))
+    out[crop_lo:crop_lo + n, crop_lo:crop_lo + n] = img
+    return out
 
 
 def _dft_matrix(S: int, dtype=torch.complex64, device=None):

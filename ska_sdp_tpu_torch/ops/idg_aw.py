@@ -35,7 +35,7 @@ def aw_screens_host(akerns, S: int, fov_scale: float = 1.0) -> np.ndarray:
     j = np.arange(s) - s // 2
     q = np.arange(S) - S // 2
     E = np.exp(-2j * np.pi * fov_scale / S * np.outer(q, j))
-    return np.einsum("qj,ajk,rk->aqr", E, ak, E)
+    return E @ ak @ E.T                  # Σ_jk E[q, j]·ak[a, j, k]·E[r, k]
 
 
 def _record_keys(grid_shape, p: torch.Tensor, a1: torch.Tensor,
