@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke test of ska_sdp_tpu_torch: the ported imaging and prediction
-paths end to end on one NVIDIA GPU, through the hand-written CUDA gridder
-and degridder.
+paths end to end on one NVIDIA GPU, through the hand-written CUDA kernels
+(the streamed IDG gridder and degridder, the bank w-projection scatter and
+gather).
 
     python3 chip_smoke.py
 
@@ -10,9 +11,10 @@ result line):
 
 1. device: a CUDA card is required (no CPU fallback); versions and the
    card's name and power limit as ``nvidia-smi`` reports them;
-2. build: compile ``ska_sdp_tpu_torch/csrc/idg_grid.cu`` and
-   ``csrc/idg_degrid.cu`` with nvcc for sm_90a, one nvcc each, started
-   together; print the gridder's build time and ptxas resource use;
+2. build: compile ``ska_sdp_tpu_torch/csrc/idg_grid.cu``,
+   ``csrc/idg_degrid.cu``, ``csrc/wproj_grid.cu`` and
+   ``csrc/wproj_degrid.cu`` with nvcc for sm_90a, one nvcc each, all
+   started together; print the gridder's build time and ptxas resource use;
 3. gridder parity on the card against the plain PyTorch version on the
    same inputs: a mid-size IDG-AW case (512² grid, S=64, 16 antennas of
    track data, random screens) and the full-size unit-screen records of the
@@ -52,10 +54,36 @@ result line):
    kernels, 0 dropped and each within 5e-5 of its plain version;
 10. degridder times (CUDA events, median of 7 after a warm-up): the
     kernel, its plain version, the degrid prep, and IDG predict, IDG-AW
-    image and IDG-AW predict end to end.
+    image and IDG-AW predict end to end;
+11. build: the w-projection kernels' build times and ptxas resource use;
+12. w-projection kernel parity on the card against the plain versions
+    (``ops/gridding.py``) on the same inputs: grid and visibility rel-L2
+    ≤ 5e-5 (float32 sums in atomic order) and equal counts of valid
+    records, at a mid-size 512² shape (nw=4, qpx=4, random bank, records
+    beyond the grid's edges), at the reference benchmark's full-size shape
+    (2400², ``bench.py``'s 1,048,576 uniform records and NW=32, QPX=8, 15²
+    random bank from numpy seed 0) and at its 4800² shape (θ=0.016, the
+    same records and bank: the fold of the tiled TPU kernels);
+13. w-projection main paths on phase 4's observation with a 32-plane,
+    qpx=8, 15² bank (npix_ff=256) for its w range, built on the card by
+    ``ops/wkernel``, each with the launch counts reset just before:
+    ``w_image`` (finite, at least one scatter launch, the peak at a
+    source, every source's 5×5 window above 0.25·max, rel-L2 ≤ 1e-4
+    against the same pipeline on the plain scatter) and ``w_predict_vis``
+    of phase 8's model (at least one gather launch, rel-L2 ≤ 5e-5 against
+    the plain gather); the adjoint identity through both kernels to 1e-5;
+    printed without a bound: the image against phase 4's IDG image, and
+    the prediction, and one through the conjugated bank, against phase 8's
+    float64 direct DFT;
+14. w-projection times (CUDA events, median of 7 after a warm-up): each
+    kernel and its plain version at the full-size shape, the bank build,
+    and ``w_image`` and ``w_predict_vis`` end to end.
 
 The line before last is the ``nvidia-smi`` name and power limit, the one
-before it a JSON summary of the kernels; the last line is
+before it a JSON summary of the kernels (``replaces`` lists each TPU
+kernel the CUDA kernel stands for, folds included; ``bound_ms`` is the
+larger of the f32 operations over 67 TFLOP/s and the bytes over 3.35 TB/s,
+from this run's inputs); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -74,6 +102,9 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 THETA, LAM, SUBGRID, SUPPORT, BETA = 0.008, 300000, 64, 15, 12.0
 KERNEL_TOL = 5e-5        # the reference's between-route bound
+ADJOINT_TOL = 1e-5       # <G, grid(v)> against <degrid(G), v>, float32
+F32_FLOPS = 67e12        # H100 SXM peak, float32 outside the tensor cores
+HBM_BPS = 3.35e12        # H100 SXM device-memory rate
 IMAGE_TOL = 1e-4         # image contract over the central 75%
 TRUTH_TOL = 2e-4         # predict vs direct DFT (the reference's IDG bound)
 C = 299792458.0
@@ -114,6 +145,19 @@ def timed_ms(torch, fn, reps=REPS):
     return statistics.median(times)
 
 
+def bound(ops: float, nbytes: float):
+    """``(bound_ms, bound_by)``: the larger of the operations over the f32
+    peak and the bytes over the memory rate."""
+    t_ops = ops / F32_FLOPS * 1e3
+    t_bytes = nbytes / HBM_BPS * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def print_ptxas(build_log, name):
     for line in build_log.get(name, "").splitlines():
         if "registers" in line or "spill" in line:
@@ -138,6 +182,83 @@ def track_records(nbl, ntime, nchan, n_grid, rng):
     p[:, 1] = vt.ravel()
     p[:, 2] = wt.ravel()
     return p, ut.shape
+
+
+# ---- the main paths' inputs (shared with scripts/profile_torch.py) --------
+def main_observation():
+    """Phase 4's synthetic SKA1-Low observation: ``(obs dict, VisData)``."""
+    from ska_sdp_tpu_torch.io.synthetic import (SyntheticConfig,
+                                                simulate_observation)
+    from ska_sdp_tpu_torch.models.dataset import vis_data_from_observation
+
+    obs = simulate_observation(SyntheticConfig(theta=THETA, lam=LAM,
+                                               nant=512, ntime=8, seed=1234))
+    return obs, vis_data_from_observation(obs)
+
+
+def snapped_model(obs, n: int):
+    """Phase 8's ``[n, n]`` float32 model of the observation's sources,
+    each snapped to a pixel centre inside the central 75%, and the snapped
+    ``(l, m, flux)`` list."""
+    model = np.zeros((n, n), np.float32)
+    srcs = []
+    for l, m, flux in obs["sources"]:
+        py, px = int(round(n / 2 + m * LAM)), int(round(n / 2 + l * LAM))
+        if not (n // 8 <= min(py, px) and max(py, px) < n - n // 8):
+            raise AssertionError("a source lies outside the central 75%")
+        model[py, px] += flux
+        srcs.append(((px - n // 2) / LAM, (py - n // 2) / LAM, flux))
+    return model, srcs
+
+
+def aw_track_inputs():
+    """Phase 9's IDG-AW inputs: the reference benchmark's 64-station track
+    records (seed 11), pair-major, as a ``VisData`` at frequency c with
+    random complex 15×15 A-kernels (seed 12).  Returns a namespace."""
+    from types import SimpleNamespace
+
+    from ska_sdp_tpu_torch.models.dataset import VisData
+
+    nant = 64
+    ii, jj = np.triu_indices(nant, k=1)
+    nbl = ii.shape[0]
+    n = int(round(THETA * LAM))
+    p_t, tshape = track_records(nbl, 65, 8, n, np.random.default_rng(11))
+    nT = p_t.shape[0]
+    # pair-major, channels then time inner: each (baseline, channel) track
+    # is one segment.  (As a time-major raster of 16,128 "baselines" the
+    # 8 channel tracks of a pair would enter the unsorted prep as 8
+    # segments each and overflow the 8·npair run bound.)
+    pm = np.arange(nT).reshape(tshape).transpose(1, 2, 0).ravel()
+    p_t = p_t[pm]
+    a1 = np.broadcast_to(ii[None, :, None], tshape).ravel()[pm]
+    a2 = np.broadcast_to(jj[None, :, None], tshape).ravel()[pm]
+    time_t = np.broadcast_to(np.arange(65.0)[:, None, None], tshape
+                             ).ravel()[pm]
+    rng = np.random.default_rng(12)
+    ak = (rng.standard_normal((nant, 15, 15))
+          + 1j * rng.standard_normal((nant, 15, 15)))
+    uvw_t = np.stack([p_t[:, 0] * LAM, p_t[:, 1] * LAM, p_t[:, 2]], 1)
+    vis_t = (rng.standard_normal(nT) + 1j * rng.standard_normal(nT))
+    vd = VisData(vis_t, uvw_t.astype(np.float64), a1.astype(np.int64),
+                 a2.astype(np.int64), time_t, C)
+    return SimpleNamespace(vd=vd, ak=ak, a1=a1, a2=a2, time=time_t,
+                           nant=nant, ii=ii, jj=jj, nbl=nbl, n=nT)
+
+
+def w_bank_inputs(torch, obs, dev):
+    """Phase 13's w-kernel bank for the observation's w range: the 32 plane
+    centres (numpy) and a function that builds the qpx=8, 15², npix_ff=256
+    bank on the card."""
+    from ska_sdp_tpu_torch.config import KernelOptions
+    from ska_sdp_tpu_torch.io.synthetic import SyntheticConfig, w_plane_centers
+    from ska_sdp_tpu_torch.ops.wkernel import w_kernel
+
+    centers = w_plane_centers(obs, SyntheticConfig(theta=THETA, lam=LAM,
+                                                   nw_planes=32))
+    opts = KernelOptions(qpx=8, npix_ff=256, npix_kern=15)
+    centers_t = torch.as_tensor(centers, device=dev)
+    return centers, lambda: w_kernel(THETA, centers_t, opts, device=dev)
 
 
 def main() -> int:
@@ -179,8 +300,9 @@ def main() -> int:
         _build.load(kernel)
         return time.perf_counter() - t
 
-    pool = ThreadPoolExecutor(max_workers=2)
-    builds = {k: pool.submit(build, k) for k in ("idg_grid", "idg_degrid")}
+    kernels_cu = ("idg_grid", "idg_degrid", "wproj_grid", "wproj_degrid")
+    pool = ThreadPoolExecutor(max_workers=len(kernels_cu))
+    builds = {k: pool.submit(build, k) for k in kernels_cu}
     pool.shutdown(wait=False)
     print(f"build: idg_grid.cu for sm_90a in "
           f"{builds['idg_grid'].result():.1f} s")
@@ -232,9 +354,7 @@ def main() -> int:
                scr=scr, n=vis.shape[0])
 
     # ---- 3b. full-size unit-screen parity (the main path's records) ------
-    obs = simulate_observation(SyntheticConfig(theta=THETA, lam=LAM,
-                                               nant=512, ntime=8, seed=1234))
-    vd = vis_data_from_observation(obs)
+    obs, vd = main_observation()
     n_vis = vd.vis.shape[0]
     uvw, f, vis = idg_inputs(vd, device=dev)
     g = idg_grid_inputs(uvw, f, vis, theta=THETA, lam=LAM)
@@ -319,24 +439,41 @@ def main() -> int:
     print(f"build: idg_degrid.cu for sm_90a in "
           f"{builds['idg_degrid'].result():.1f} s (started with idg_grid.cu)")
     print_ptxas(_build.build_log, "idg_degrid")
-    degrid = degrid_phases(torch, dev, card, mid, vd, obs, k_full)
+    degrid, model, truth = degrid_phases(torch, dev, card, mid, vd, obs,
+                                         k_full)
+    for k in ("wproj_grid", "wproj_degrid"):
+        print(f"build: {k}.cu for sm_90a in {builds[k].result():.1f} s "
+              "(started with idg_grid.cu)")
+        print_ptxas(_build.build_log, k)
+    wproj = wproj_phases(torch, dev, card, vd, obs, img, model, truth)
 
+    S = SUBGRID
+    grid_ops = 8 * S * S * n_vis + 16 * S ** 3 * n_runs
+    # inputs read once (records, run tables, screens), the padded grid
+    # written once
+    bound_ms, bound_by = bound(grid_ops, nbytes(*recs[:7], unit)
+                               + (n + 2 * S) ** 2 * 8)
     print(json.dumps({"kernels": [{
         "name": stream.GRID_KERNEL,
         "route": "cuda",
         "source": "ska_sdp_tpu_torch/csrc/idg_grid.cu",
-        "replaces": "ska_sdp_tpu/kernels/idg_aw_stream_pallas.py:161",
+        "replaces": "ska_sdp_tpu/kernels/idg_aw_stream_pallas.py:161, "
+                    "ska_sdp_tpu/kernels/idg_aw_stream_pallas.py:873",
         "launches": launches,
         "max_abs_err": max_abs,
         "ms": ms_kernel,
         "plain_ms": ms_plain,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
     }, {
         "name": stream.DEGRID_KERNEL,
         "route": "cuda",
         "source": "ska_sdp_tpu_torch/csrc/idg_degrid.cu",
-        "replaces": "ska_sdp_tpu/kernels/idg_aw_stream_pallas.py:475",
+        "replaces": "ska_sdp_tpu/kernels/idg_aw_stream_pallas.py:475, "
+                    "ska_sdp_tpu/kernels/idg_aw_stream_pallas.py:1014",
         **degrid,
-    }]}))
+    }, *wproj]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
@@ -353,6 +490,7 @@ def degrid_phases(torch, dev, card, mid, vd, obs, grid_full):
     from ska_sdp_tpu_torch.kernels.idg_aw_records import (
         idg_aw_degrid_records, idg_aw_run_records)
     from ska_sdp_tpu_torch.models import dataset as ds
+    from ska_sdp_tpu_torch.ops.idg_aw import PAIR_SHIFT
     from ska_sdp_tpu_torch.types import SINGLE
 
     def degrid_both(shape, p, a1, a2, w, grid, scr, theta, max_runs):
@@ -403,14 +541,7 @@ def degrid_phases(torch, dev, card, mid, vd, obs, grid_full):
 
     # ---- 8. IDG predict main path -----------------------------------------
     n = g.n
-    model = np.zeros((n, n), np.float32)
-    srcs = []
-    for l, m, flux in obs["sources"]:
-        py, px = int(round(n / 2 + m * LAM)), int(round(n / 2 + l * LAM))
-        if not (n // 8 <= min(py, px) and max(py, px) < n - n // 8):
-            raise AssertionError("a source lies outside the central 75%")
-        model[py, px] += flux
-        srcs.append(((px - n // 2) / LAM, (py - n // 2) / LAM, flux))
+    model, srcs = snapped_model(obs, n)
     stream.reset_launch_count()
     pred = ds.idg_predict_vis(vd, model, theta=THETA, lam=LAM,
                               subgrid=SUBGRID, taper_beta=BETA, device=dev)
@@ -443,29 +574,10 @@ def degrid_phases(torch, dev, card, mid, vd, obs, grid_full):
         raise AssertionError(f"predict vs direct DFT failed: {err_truth}")
 
     # ---- 9. IDG-AW imaging and predict at the benchmark's track shape ----
-    nant = 64
-    ii, jj = np.triu_indices(nant, k=1)
-    nbl = ii.shape[0]
-    p_t, tshape = track_records(nbl, 65, 8, n, np.random.default_rng(11))
-    nT = p_t.shape[0]
-    # pair-major, channels then time inner: each (baseline, channel) track
-    # is one segment.  (As a time-major raster of 16,128 "baselines" the
-    # 8 channel tracks of a pair would enter the unsorted prep as 8
-    # segments each and overflow the 8·npair run bound.)
-    pm = np.arange(nT).reshape(tshape).transpose(1, 2, 0).ravel()
-    p_t = p_t[pm]
-    a1_t = np.broadcast_to(ii[None, :, None], tshape).ravel()[pm]
-    a2_t = np.broadcast_to(jj[None, :, None], tshape).ravel()[pm]
-    time_t = np.broadcast_to(np.arange(65.0)[:, None, None], tshape
-                             ).ravel()[pm]
-    rng = np.random.default_rng(12)
-    ak = (rng.standard_normal((nant, 15, 15))
-          + 1j * rng.standard_normal((nant, 15, 15)))
-    uvw_t = np.stack([p_t[:, 0] * LAM, p_t[:, 1] * LAM, p_t[:, 2]], 1)
-    vis_t = (rng.standard_normal(nT) + 1j * rng.standard_normal(nT))
-    vd_aw = ds.VisData(vis_t, uvw_t.astype(np.float64),
-                       a1_t.astype(np.int64), a2_t.astype(np.int64), time_t,
-                       C)
+    t_aw = aw_track_inputs()
+    vd_aw, ak, a1_t, a2_t, time_t = (t_aw.vd, t_aw.ak, t_aw.a1, t_aw.a2,
+                                     t_aw.time)
+    nant, ii, jj, nbl, nT = t_aw.nant, t_aw.ii, t_aw.jj, t_aw.nbl, t_aw.n
     mr = ds._aw_run_bound(vd_aw.antenna1, vd_aw.antenna2, nT)
     layout = ds._detect_time_major_layout(vd_aw.antenna1, vd_aw.antenna2,
                                           time_t, nT)
@@ -613,8 +725,290 @@ def degrid_phases(torch, dev, card, mid, vd, obs, grid_full):
             ("aw_predict_vis end to end", ms_aw_pred, nT)):
         print(f"time {label}: {ms:.3f} ms = {count / ms / 1e3:.2f} M vis/s "
               f"[{card}]")
+    S = SUBGRID
+    n_runs = int(((drecs_full[1][1:] > drecs_full[1][:-1])
+                  & (drecs_full[4] < PAIR_SHIFT)).sum())
+    ops = 8 * S * S * n_vis + 16 * S ** 3 * n_runs
+    # records, run tables, order, screens and the padded grid read once;
+    # the visibilities written once
+    bound_ms, bound_by = bound(ops, nbytes(*drecs_full[:7], unit)
+                               + (n + 2 * S) ** 2 * 8 + n_vis * 8)
     return {"launches": launches, "max_abs_err": max_abs, "ms": ms_kernel,
-            "plain_ms": ms_plain}
+            "plain_ms": ms_plain, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}, model, truth
+
+
+def bench_records(n_rec: int = 1 << 20):
+    """The reference benchmark's bank-path inputs (``bench.py:93-97,
+    212-223``): a random NW=32, QPX=8, 15² bank, centres on ±4000 λ, 2²⁰
+    uniform records (uv within ±0.42·lam, w within ±3800 λ), visibilities
+    and a random 2400² grid, from numpy seed 0; mirrored and binned as
+    ``bench.py``'s ``_prep`` does.  Returns numpy arrays."""
+    nw, qpx, s = 32, 8, 15
+    n_grid = int(round(THETA * LAM))
+    rng = np.random.default_rng(0)
+    bank = (rng.standard_normal((nw, qpx, qpx, s, s)).astype(np.float32)
+            + 1j * rng.standard_normal((nw, qpx, qpx, s, s)).astype(
+                np.float32)).astype(np.complex64)
+    centers = np.linspace(-4000, 4000, nw).astype(np.float32)
+    uvw = rng.uniform(-0.42 * LAM, 0.42 * LAM, size=(n_rec, 3))
+    uvw[:, 2] = rng.uniform(-3800, 3800, size=n_rec)
+    vis = (rng.standard_normal(n_rec).astype(np.float32)
+           + 1j * rng.standard_normal(n_rec).astype(np.float32))
+    grid = (rng.standard_normal((n_grid, n_grid)).astype(np.float32)
+            + 1j * rng.standard_normal((n_grid, n_grid)).astype(np.float32))
+    return dict(bank=bank, centers=centers, uvw=uvw.astype(np.float32),
+                vis=vis.astype(np.complex64), grid=grid.astype(np.complex64))
+
+
+def wproj_phases(torch, dev, card, vd, obs, img_idg, model, truth):
+    """Phases 12-14.  ``vd``/``obs`` are the main path's observation,
+    ``img_idg`` phase 4's IDG image, ``model`` and ``truth`` phase 8's
+    snapped-source model and its float64 direct-DFT visibilities.  Returns
+    the two kernels' entries of the ``kernels`` line."""
+    from ska_sdp_tpu_torch.kernels import wproj
+    from ska_sdp_tpu_torch.models import dataset as ds
+    from ska_sdp_tpu_torch.ops import (fft_centered, ifft_centered,
+                                       make_grid_hermitian, mirror_uvw,
+                                       uvw_lambda)
+    from ska_sdp_tpu_torch.ops.gridding import convgrid_wproj, degrid_wproj
+    from ska_sdp_tpu_torch.ops.search import find_closest
+
+    chunk = 8192
+
+    def both(bank, shape, p, wbin, vis, grid):
+        """Kernel and plain results of the scatter and the gather."""
+        g_k = wproj.wproj_gridder(bank, shape, p, wbin, vis)
+        v_k = wproj.wproj_degridder(bank, grid, p, wbin)
+        g_p = convgrid_wproj(bank, torch.zeros(shape, dtype=torch.complex64,
+                                               device=dev), p, wbin, vis,
+                             chunk=chunk)
+        v_p = degrid_wproj(bank, grid, p, wbin, chunk=chunk)
+        torch.cuda.synchronize()
+        return g_k, v_k, g_p, v_p
+
+    def parity(label, bank, shape, p, wbin, vis, grid):
+        g_k, v_k, g_p, v_p = both(bank, shape, p, wbin, vis, grid)
+        err_g = rel_l2(g_k.cpu().numpy(), g_p.cpu().numpy())
+        err_v = rel_l2(v_k.cpu().numpy(), v_p.cpu().numpy())
+        nw, qpx, _, gh, gw = bank.shape
+        valid = wproj.wproj_records(shape, qpx, gh, gw, nw * qpx * qpx, p,
+                                    wbin)[3]
+        n_valid = int(valid.sum())
+        nz_k, nz_p = int((v_k != 0).sum()), int((v_p != 0).sum())
+        print(f"wproj parity {label}: grid rel-L2 {err_g:.3e}, vis rel-L2 "
+              f"{err_v:.3e} (bound {KERNEL_TOL}); valid records "
+              f"{n_valid} of {p.shape[0]}, nonzero predictions kernel "
+              f"{nz_k} plain {nz_p}")
+        if not (err_g <= KERNEL_TOL and err_v <= KERNEL_TOL):
+            raise AssertionError(f"wproj parity {label} failed: {err_g}, "
+                                 f"{err_v}")
+        if not nz_k == nz_p == n_valid:
+            raise AssertionError(f"wproj valid counts differ: {n_valid}, "
+                                 f"{nz_k}, {nz_p}")
+        return (float(np.abs(g_k.cpu().numpy() - g_p.cpu().numpy()).max()),
+                float(np.abs(v_k.cpu().numpy() - v_p.cpu().numpy()).max()))
+
+    def to_dev(*arrays):
+        return [torch.as_tensor(a, device=dev) for a in arrays]
+
+    # ---- 12a. mid-size parity, records beyond the edges -------------------
+    rng = np.random.default_rng(21)
+    n_mid = 200_000
+    bank_mid = (rng.standard_normal((4, 4, 4, 15, 15))
+                + 1j * rng.standard_normal((4, 4, 4, 15, 15))
+                ).astype(np.complex64)
+    p_mid = rng.uniform(-0.53, 0.53, (n_mid, 3)).astype(np.float32)
+    wbin_mid = rng.integers(0, 4, n_mid).astype(np.int32)
+    vis_mid = (rng.standard_normal(n_mid)
+               + 1j * rng.standard_normal(n_mid)).astype(np.complex64)
+    grid_mid = (rng.standard_normal((512, 512))
+                + 1j * rng.standard_normal((512, 512))).astype(np.complex64)
+    parity(f"mid (512², nw=4, qpx=4, {n_mid} records, |p| ≤ 0.53)",
+           *to_dev(bank_mid), (512, 512),
+           *to_dev(p_mid, wbin_mid, vis_mid, grid_mid))
+
+    # ---- 12b/c. the benchmark's full-size shape, and the 4800² fold -------
+    b = bench_records()
+    bank_b, centers_b, uvw_b, vis_b, grid_b = to_dev(
+        b["bank"], b["centers"], b["uvw"], b["vis"], b["grid"])
+    uvw1, vis1 = mirror_uvw(uvw_b, vis_b)
+    wbin_b = find_closest(centers_b, uvw1[:, 2])
+    p_b = uvw1 / LAM
+    n_b = p_b.shape[0]
+    shape_b = tuple(grid_b.shape)
+    max_abs_g, max_abs_v = parity(
+        f"full ({shape_b[0]}², NW=32, QPX=8, 15², {n_b} records)", bank_b,
+        shape_b, p_b, wbin_b, vis1, grid_b)
+    n_lg = int(round(0.016 * LAM))
+    grid_lg = torch.randn((n_lg, n_lg), dtype=torch.complex64, device=dev,
+                          generator=torch.Generator(dev).manual_seed(3))
+    parity(f"fold ({n_lg}², θ=0.016, the same records and bank)", bank_b,
+           (n_lg, n_lg), p_b, wbin_b, vis1, grid_lg)
+    del grid_lg
+
+    # ---- 13. main paths ----------------------------------------------------
+    n_vis = vd.vis.shape[0]
+    centers, build_bank = w_bank_inputs(torch, obs, dev)
+    centers_t = torch.as_tensor(centers, device=dev)
+    bank = build_bank()
+    torch.cuda.synchronize()
+    print(f"bank: {tuple(bank.shape)} {bank.dtype} built on the card for "
+          f"w in ±{centers[-1]:.1f} λ")
+    wproj.reset_launch_count()
+    res = ds.w_image(vd, bank, centers, theta=THETA, lam=LAM, device=dev)
+    torch.cuda.synchronize()
+    launches_g = wproj.launch_count(wproj.GRID_KERNEL)
+    img = res.image.cpu().numpy()
+    n = img.shape[0]
+    print(f"w main path: w_image {n}² from {n_vis} vis, image max "
+          f"{res.image_max:.6g}, scatter launches {launches_g}")
+    if not np.isfinite(img).all():
+        raise AssertionError("w-projection image has non-finite pixels")
+    if launches_g < 1:
+        raise AssertionError("w_image did not launch the CUDA scatter")
+    iy, ix = np.unravel_index(np.argmax(img), img.shape)
+    srcs = obs["sources"]
+    dists = [abs(iy - (n / 2 + m * LAM)) + abs(ix - (n / 2 + l * LAM))
+             for l, m, _ in srcs]
+    print(f"  peak at ({iy}, {ix}), L1 distance to nearest source "
+          f"{min(dists):.2f} px (bound 3)")
+    if min(dists) > 3.0:
+        raise AssertionError("w image peak is not at a simulated source")
+    for l, m, _ in srcs:
+        cy, cx = int(round(n / 2 + m * LAM)), int(round(n / 2 + l * LAM))
+        win = img[max(0, cy - 2):cy + 3, max(0, cx - 2):cx + 3]
+        if not win.max() > 0.25 * img.max():
+            raise AssertionError(f"source at ({l}, {m}) not recovered")
+    print("  every source's 5×5 window above 0.25 of the image max")
+    # the same pipeline with the plain scatter on the card
+    bank64 = bank.to(torch.complex64)
+    bank_conj = torch.conj(bank64).resolve_conj()
+    cent32 = centers_t.to(torch.float32)
+    uvw, f, vis = ds.idg_inputs(vd, device=dev)
+    g = ds.idg_grid_inputs(uvw, f, vis, theta=THETA, lam=LAM)
+    wbin = find_closest(cent32, g.w)
+    guv_plain = convgrid_wproj(bank_conj, torch.zeros(
+        g.grid_shape, dtype=torch.complex64, device=dev), g.p, wbin, g.vis,
+        chunk=chunk)
+    img_plain = ifft_centered(make_grid_hermitian(guv_plain)).real
+    err_img = rel_l2(img, img_plain.cpu().numpy())
+    print(f"  image vs plain-scatter pipeline: rel-L2 {err_img:.3e} (bound "
+          f"{IMAGE_TOL}); vs phase 4's IDG image (no bound: another "
+          f"approximation, no anti-aliasing taper): "
+          f"{rel_l2(crop75(img), crop75(img_idg)):.3e} over the central 75%")
+    if not err_img <= IMAGE_TOL:
+        raise AssertionError(f"w image parity failed: {err_img}")
+
+    wproj.reset_launch_count()
+    pred = ds.w_predict_vis(vd, bank, centers, model, theta=THETA, lam=LAM,
+                            device=dev)
+    torch.cuda.synchronize()
+    launches_d = wproj.launch_count(wproj.DEGRID_KERNEL)
+    uvw0 = uvw_lambda(f, uvw)
+    mgrid = fft_centered(torch.as_tensor(model, device=dev).to(
+        torch.complex64))
+    wbin0 = find_closest(cent32, uvw0[:, 2])
+    v_plain = degrid_wproj(bank64, mgrid, uvw0 / LAM, wbin0, chunk=chunk)
+    err_pred = rel_l2(pred.vis.cpu().numpy(), v_plain.cpu().numpy())
+    got = pred.vis.to(torch.complex128)
+    err_truth = float(torch.linalg.norm(got - truth)
+                      / torch.linalg.norm(truth))
+    print(f"w predict main path: w_predict_vis of phase 8's model to "
+          f"{n_vis} vis, peak |vis| {pred.peak:.6g}, gather launches "
+          f"{launches_d}; vs plain gather rel-L2 {err_pred:.3e} (bound "
+          f"{KERNEL_TOL}); vs float64 direct DFT (no bound) {err_truth:.3e}")
+    if not torch.isfinite(pred.vis).all():
+        raise AssertionError("w prediction has non-finite values")
+    if launches_d < 1:
+        raise AssertionError("w_predict_vis did not launch the CUDA gather")
+    if not err_pred <= KERNEL_TOL:
+        raise AssertionError(f"w predict parity failed: {err_pred}")
+    # the reference's predict degrids with the raw bank, which applies the
+    # w phase with the opposite sign to the measurement equation; the
+    # conjugated bank shows what the forward model would give (no bound)
+    pred_c = ds.w_predict_vis(vd, torch.conj(bank).resolve_conj(), centers,
+                              model, theta=THETA, lam=LAM, device=dev)
+    err_c = float(torch.linalg.norm(pred_c.vis.to(torch.complex128) - truth)
+                  / torch.linalg.norm(truth))
+    print(f"  w predict with the conjugated bank vs float64 direct DFT (no "
+          f"bound): {err_c:.3e}")
+
+    # adjoint identity through both kernels, the same raw bank both ways
+    G = torch.as_tensor(b["grid"], device=dev)
+    Av = wproj.wproj_gridder(bank64, g.grid_shape, g.p, wbin, g.vis)
+    AtG = wproj.wproj_degridder(bank64, G, g.p, wbin)
+    lhs = torch.vdot(G.reshape(-1).to(torch.complex128),
+                     Av.reshape(-1).to(torch.complex128)).item()
+    rhs = torch.vdot(AtG.to(torch.complex128),
+                     g.vis.to(torch.complex128)).item()
+    err_adj = abs(lhs - rhs) / abs(lhs)
+    print(f"w adjoint on the card: |<G, grid(v)> - <degrid(G), v>| / "
+          f"|<G, grid(v)>| = {err_adj:.3e} (bound {ADJOINT_TOL})")
+    if not err_adj <= ADJOINT_TOL:
+        raise AssertionError(f"w adjoint identity failed: {err_adj}")
+
+    # ---- 14. times -------------------------------------------------------
+    zeros_b = torch.zeros(shape_b, dtype=torch.complex64, device=dev)
+    ms = {
+        "scatter kernel (CUDA)": timed_ms(torch, lambda: wproj.wproj_gridder(
+            bank_b, shape_b, p_b, wbin_b, vis1)),
+        "scatter plain (PyTorch)": timed_ms(torch, lambda: convgrid_wproj(
+            bank_b, zeros_b, p_b, wbin_b, vis1, chunk=chunk)),
+        "gather kernel (CUDA)": timed_ms(torch, lambda: wproj.wproj_degridder(
+            bank_b, grid_b, p_b, wbin_b)),
+        "gather plain (PyTorch)": timed_ms(torch, lambda: degrid_wproj(
+            bank_b, grid_b, p_b, wbin_b, chunk=chunk)),
+    }
+    for label, t in ms.items():
+        print(f"time {label} at the full-size shape: {t:.3f} ms = "
+              f"{n_b / t / 1e3:.2f} M vis/s [{card}]")
+    for label, fn in (
+            ("scatter kernel (CUDA), main-path records",
+             lambda: wproj.wproj_gridder(bank_conj, g.grid_shape, g.p, wbin,
+                                         g.vis)),
+            ("gather kernel (CUDA), main-path records",
+             lambda: wproj.wproj_degridder(bank64, mgrid, uvw0 / LAM,
+                                           wbin0)),
+            ("w_image end to end", lambda: ds.w_image(
+                vd, bank, centers, theta=THETA, lam=LAM, device=dev)),
+            ("w_predict_vis end to end", lambda: ds.w_predict_vis(
+                vd, bank, centers, model, theta=THETA, lam=LAM,
+                device=dev))):
+        t = timed_ms(torch, fn)
+        print(f"time {label}: {t:.3f} ms = {n_vis / t / 1e3:.2f} M vis/s "
+              f"[{card}]")
+    print(f"time bank build (32 planes, 2048² far field, float64): "
+          f"{timed_ms(torch, build_bank):.3f} ms [{card}]")
+
+    # bounds from this run's inputs: 8 flops per in-bounds tap, and the
+    # wrapper's inputs read once and its output written once
+    nw, qpx, _, gh, gw = bank_b.shape
+    y0, x0, _, valid = wproj.wproj_records(shape_b, qpx, gh, gw,
+                                           nw * qpx * qpx, p_b, wbin_b)
+    rows = (torch.clamp(y0 + gh, max=shape_b[0]) - torch.clamp(y0, min=0))
+    cols = (torch.clamp(x0 + gw, max=shape_b[1]) - torch.clamp(x0, min=0))
+    taps = int((rows.clamp(min=0) * cols.clamp(min=0))[valid].sum())
+    io = nbytes(bank_b, p_b, wbin_b, vis1, grid_b)
+    entries = []
+    for name, cu, replaces, launches, max_abs, key in (
+            (wproj.GRID_KERNEL, "wproj_grid.cu",
+             "ska_sdp_tpu/kernels/wproj_resident_pallas.py:76, "
+             "ska_sdp_tpu/kernels/wproj_pallas.py:77", launches_g,
+             max_abs_g, "scatter"),
+            (wproj.DEGRID_KERNEL, "wproj_degrid.cu",
+             "ska_sdp_tpu/kernels/wproj_degrid_resident_pallas.py:39, "
+             "ska_sdp_tpu/kernels/wproj_degrid_pallas.py:47", launches_d,
+             max_abs_v, "gather")):
+        bound_ms, bound_by = bound(8 * taps, io)
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"ska_sdp_tpu_torch/csrc/{cu}", "replaces": replaces,
+            "launches": launches, "max_abs_err": max_abs,
+            "ms": ms[f"{key} kernel (CUDA)"],
+            "plain_ms": ms[f"{key} plain (PyTorch)"],
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+    return entries
 
 
 if __name__ == "__main__":

@@ -1,9 +1,13 @@
-"""Command-line interface of the port (the ``--mode idg``, ``--mode aw
---idg``, ``--mode predict --idg [--aterms]`` and ``--make-data`` surfaces
-of ``ska_sdp_tpu/cli.py``, same flag names and messages).
+"""Command-line interface of the port (the ``--mode w``, ``--mode idg``,
+``--mode aw --idg``, ``--mode predict [--idg [--aterms]]`` and
+``--make-data`` surfaces of ``ska_sdp_tpu/cli.py``, same flag names and
+messages).
 
 Examples:
     python -m ska_sdp_tpu_torch.cli --make-data data/ --nant 16 --ntime 24
+    python -m ska_sdp_tpu_torch.cli --mode w -i data/ --all -o w.h5
+    python -m ska_sdp_tpu_torch.cli --mode predict -i data/ --all \
+        --model w.h5 -o pred.h5
     python -m ska_sdp_tpu_torch.cli --mode idg -i data/ --all -o img.h5
     python -m ska_sdp_tpu_torch.cli --mode idg -i data/ --all --device cpu
     python -m ska_sdp_tpu_torch.cli --mode aw --idg -i data/ --all -o aw.h5
@@ -31,21 +35,25 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-n", type=int, default=None, help="visibility count cap")
     p.add_argument("--all", action="store_true", help="use every visibility")
     p.add_argument("-i", "--input-dir", default="data",
-                   help="input directory (reads vis.h5, and akern.h5 for "
-                        "--mode aw and --aterms)")
+                   help="input directory (reads vis.h5, wkern.h5 for --mode "
+                        "w and --mode predict without --idg, and akern.h5 "
+                        "for --mode aw and --aterms)")
     p.add_argument("-o", "--output", default=None,
                    help="output .h5 (/img, or /vis/model for predict)")
     p.add_argument("--mode", choices=_MODES, default="idg",
-                   help="pipeline; ported: idg (image-domain gridding), aw "
-                        "with --idg (IDG-AW imaging) and predict with --idg "
-                        "(model image -> vis, IDG or IDG-AW degridding)")
+                   help="pipeline; ported: w (bank w-projection), idg "
+                        "(image-domain gridding), aw with --idg (IDG-AW "
+                        "imaging) and predict (model image -> vis: bank "
+                        "w-projection, or IDG / IDG-AW degridding with "
+                        "--idg)")
     p.add_argument("--subgrid", type=int, default=64,
                    help="IDG subgrid size (32, 64 or 128)")
     p.add_argument("--fov-pad", type=float, default=None,
                    help="IDG full-FOV guarantee: grid FOV/f and crop")
     p.add_argument("--precision", choices=["single", "double"],
                    default="single",
-                   help="input precision; the gridder runs in float32")
+                   help="single (complex64, the CUDA kernels) or double "
+                        "(complex128; --mode w and predict on the CPU)")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (the CUDA kernels) or cpu "
                         "(their plain versions)")
@@ -60,12 +68,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="multi-device imaging (not yet ported)")
     p.add_argument("--device-phases", action="store_true",
                    help="staged device timings (not yet ported)")
+    p.add_argument("--dump-intermediates", metavar="FILE", default=None,
+                   help="--mode w debug dumps (not yet ported)")
+    p.add_argument("--checkpoint", default=None,
+                   help="resumable --mode w run (not yet ported)")
+    p.add_argument("--out-of-core", action="store_true",
+                   help="streamed --mode w run (not yet ported)")
     p.add_argument("--idg", action="store_true",
                    help="use the IDG realization for --mode predict "
                         "(continuous-w degridding) or --mode aw (IDG-AW: "
                         "image-domain A-screens on pair-chunked subgrids); "
                         "no wkern file needed either way (the only "
-                        "realization of aw and predict ported)")
+                        "realization of aw ported)")
     p.add_argument("--aterms", action="store_true",
                    help="--mode predict --idg: apply direction-dependent "
                         "antenna terms from akern.h5 (IDG-AW degridding)")
@@ -73,11 +87,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="model image .h5 (/img) for --mode predict")
     # synthetic-data generation
     p.add_argument("--make-data", metavar="DIR", default=None,
-                   help="write a synthetic DIR/vis.h5 and DIR/akern.h5 and "
-                        "exit (no wkern.h5: nothing in the port reads a "
-                        "w-kernel bank yet)")
+                   help="write a synthetic DIR/vis.h5, DIR/wkern.h5 and "
+                        "DIR/akern.h5 and exit")
     p.add_argument("--nant", type=int, default=16)
     p.add_argument("--ntime", type=int, default=24)
+    p.add_argument("--nw", type=int, default=16,
+                   help="--make-data: w-kernel bank planes")
+    p.add_argument("--qpx", type=int, default=4,
+                   help="--make-data: w-kernel oversampling")
     p.add_argument("--nchan", type=int, default=1,
                    help="--make-data: spectral channels to simulate")
     p.add_argument("--chan-bw", type=float, default=1.0e5,
@@ -99,18 +116,22 @@ def main(argv=None) -> int:
 
         cfg = SyntheticConfig(theta=args.theta, lam=args.lam,
                               nant=args.nant, ntime=args.ntime,
+                              nw_planes=args.nw, qpx=args.qpx,
                               nchan=args.nchan, chan_bw=args.chan_bw)
         paths, obs = generate_dataset(args.make_data, cfg)
         print(f"wrote {paths} ({obs['n']} visibilities)")
         return 0
 
-    if args.mode in ("aw", "predict") and not args.idg:
-        return _not_ported(f"--mode {args.mode} without --idg")
-    if args.mode not in ("idg", "aw", "predict"):
+    if args.mode == "aw" and not args.idg:
+        return _not_ported("--mode aw without --idg")
+    if args.mode not in ("w", "idg", "aw", "predict"):
         return _not_ported(f"--mode {args.mode}")
     for flag, on in (("--channels", args.channels not in (None, 1)),
                      ("--distributed", args.distributed),
-                     ("--device-phases", args.device_phases)):
+                     ("--device-phases", args.device_phases),
+                     ("--dump-intermediates", args.dump_intermediates),
+                     ("--checkpoint", args.checkpoint),
+                     ("--out-of-core", args.out_of_core)):
         if on:
             return _not_ported(flag)
     if args.aterms and not (args.mode == "predict" and args.idg):
@@ -127,8 +148,12 @@ def main(argv=None) -> int:
     from .models import dataset as ds
 
     vis_path = os.path.join(args.input_dir, "vis.h5")
+    wkern_path = os.path.join(args.input_dir, "wkern.h5")
     akern_path = os.path.join(args.input_dir, "akern.h5")
+    w_bank = args.mode == "w" or (args.mode == "predict" and not args.idg)
     required = [vis_path]
+    if w_bank:
+        required.append(wkern_path)
     if args.mode == "aw" or args.aterms:
         required.append(akern_path)
     for path in required:
@@ -145,27 +170,36 @@ def main(argv=None) -> int:
                         n_vis=None if args.all else args.n)
     print(time.strftime("%Y-%m-%d %H:%M:%S"), "start imaging", flush=True)
     t0 = time.perf_counter()
-    common = dict(n=cfg.n_vis, outfile=args.output, config=cfg,
-                  subgrid=args.subgrid, fov_pad=args.fov_pad, device=device)
+    common = dict(n=cfg.n_vis, outfile=args.output, config=cfg, device=device)
+    idg_opts = dict(subgrid=args.subgrid, fov_pad=args.fov_pad)
     try:
         if args.mode == "predict":
-            if args.aterms:
+            if w_bank:
+                phase = "w_predict"
+                pred, peak = ds.w_predict(wkern_path, vis_path, args.model,
+                                          **common)
+            elif args.aterms:
                 phase = "aw_predict"
                 pred, peak = ds.aw_predict(akern_path, vis_path, args.model,
-                                           **common)
+                                           **common, **idg_opts)
             else:
                 phase = "idg_predict"
-                pred, peak = ds.idg_predict(vis_path, args.model, **common)
+                pred, peak = ds.idg_predict(vis_path, args.model, **common,
+                                            **idg_opts)
             result = (f"predicted {pred.shape[0]} visibilities, peak "
                       f"|vis|: {peak}")
+        elif w_bank:
+            phase = "w_gridding"
+            mx, _ = ds.w_gridding(wkern_path, vis_path, **common)
+            result = f"image max: {mx}"
         elif args.mode == "aw":
             phase = "aw_gridding"
             mx, _ = ds.aw_gridding(akern_path, vis_path, idg=True,
-                                   **common)
+                                   **common, **idg_opts)
             result = f"image max: {mx}"
         else:
             phase = "idg_gridding"
-            mx, _ = ds.idg_gridding(vis_path, **common)
+            mx, _ = ds.idg_gridding(vis_path, **common, **idg_opts)
             result = f"image max: {mx}"
     except (FileNotFoundError, ValueError, KeyError,
             NotImplementedError) as e:

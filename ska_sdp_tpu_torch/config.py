@@ -1,5 +1,5 @@
 """Configuration surface (port of ``ska_sdp_tpu/config.py``, the parts the
-IDG imaging path reads)."""
+ported imaging paths read)."""
 
 from __future__ import annotations
 
@@ -7,6 +7,18 @@ import dataclasses
 from typing import Optional
 
 from .types import Precision, precision
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelOptions:
+    """Options of w-kernel synthesis (the reference's field meanings):
+    oversampling, far-field and kernel sizes.  The reference's pattern
+    shift and 2×2 transform, which no ported caller sets, and its
+    ``wstep``, which belongs to the w-cache mode, are not ported."""
+
+    qpx: int = 8                 # oversampling factor of the kernel
+    npix_ff: int = 256           # far-field (image-plane) pixel count
+    npix_kern: int = 15          # extracted convolution-kernel support
 
 
 @dataclasses.dataclass(frozen=True)

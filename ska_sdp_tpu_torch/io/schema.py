@@ -1,5 +1,5 @@
 """HDF5 dataset-tree schema of the SKA1-Low bundles (port of the parts of
-``ska_sdp_tpu/io/schema.py`` the IDG and IDG-AW paths read and write):
+``ska_sdp_tpu/io/schema.py`` the ported paths read and write):
 
   visibility file:
     /vis/vis        [ntime, nbl, nch] complex  (n = ntime·nbl records)
@@ -8,6 +8,11 @@
     /vis/antenna2   [n]         int64
     /vis/time       [n]         float64    (MJD UTC)
     /vis/frequency  [nch]       float64    (Hz)
+
+  w-kernel file:
+    /wkern/<theta>/<w>/kern     [qpx, qpx, s, s] complex (unconjugated)
+      — one group per w-plane centre, named by the w value as text;
+        readers parse the names as floats and sort numerically.
 
   A-kernel file:
     /akern/<theta>/<antenna>/<time>/<freq>/kern   [s, s] complex
@@ -39,6 +44,14 @@ def fmt_float(x: float) -> str:
     """Shortest clean decimal text for a float group name (e.g. '0.008')."""
     s = repr(float(x))
     return s[:-2] if s.endswith(".0") else s
+
+
+def wkern_group(theta: float) -> str:
+    return f"/wkern/{fmt_float(theta)}"
+
+
+def wkern_dataset(theta: float, w_name: str) -> str:
+    return f"{wkern_group(theta)}/{w_name}/kern"
 
 
 def akern_group(theta: float) -> str:

@@ -1,16 +1,16 @@
-"""Synthetic SKA1-Low-style observations (port of the visibility and
-A-kernel parts of ``ska_sdp_tpu/io/synthetic.py``; no w-kernel bank, which
-nothing in the port reads yet).
+"""Synthetic SKA1-Low-style bundles (port of
+``ska_sdp_tpu/io/synthetic.py``).
 
 Antennas on a random compact layout, Earth-rotation uvw tracks, and
 visibilities of a few point sources from the measurement equation
 
     V(u, v, w) = Σ_s A_s · exp(−2πi (u·l_s + v·m_s + w·(√(1 − l² − m²) − 1)))
 
-so imaging tests can check that the sources reappear at ``(l_s, m_s)``.
+so imaging tests can check that the sources reappear at ``(l_s, m_s)``; an
+oversampled w-kernel bank over the observed w range, stored unconjugated;
+near-delta per-antenna A-kernels with small seeded perturbations.
 Everything is numpy float64 on the host, seeded by ``cfg.seed``; the same
-seed gives the same arrays as the reference package.  A-kernels are
-near-delta per-antenna stamps with small seeded perturbations.
+seed gives the same arrays and files as the reference package.
 """
 
 from __future__ import annotations
@@ -37,6 +37,10 @@ class SyntheticConfig:
     # uv box (~0.42·lam wavelengths)
     max_baseline_m: float | None = None
     nsources: int = 5
+    nw_planes: int = 16           # w-kernel bank planes
+    qpx: int = 4                  # w-kernel oversampling
+    npix_ff: int = 256            # w-kernel far-field size
+    npix_kern: int = 15           # w-kernel support
     akern_size: int = 15          # A-kernel stamp side
     seed: int = 1234
 
@@ -117,6 +121,52 @@ def write_vis_file(path: str, obs: dict) -> None:
                      obs["frequency"].astype(np.float64))
 
 
+def w_plane_centers(obs: dict, cfg: SyntheticConfig) -> np.ndarray:
+    """``cfg.nw_planes`` evenly spaced w-plane centres covering the observed
+    ±w range in wavelengths at the highest channel, with 5% margin."""
+    f_top = float(obs["frequency"][-1])
+    w_l = np.abs(obs["uvw"][:, 2]) * (f_top / 299792458.0)
+    wmax = float(w_l.max()) * 1.05 + 1e-3
+    return np.linspace(-wmax, wmax, cfg.nw_planes)
+
+
+def w_kernel_host(theta: float, w: float, qpx: int, npix_ff: int,
+                  npix_kern: int) -> np.ndarray:
+    """The oversampled w-kernel ``[qpx, qpx, s, s]`` complex128 in numpy:
+    far-field screen, centred zero-pad to ``npix_ff·qpx``, centred inverse
+    FFT, oversampled tap extraction × qpx² (the file writer's kernel).
+
+    ``ops.wkernel.w_kernel`` computes the same kernel in torch; the writer
+    keeps this numpy copy because a written file must equal the
+    reference's numpy writer to 1e-12 per element, and torch's FFT differs
+    from numpy's by up to 1.5e-12 relative on the smallest taps."""
+    n = npix_ff
+    base = (np.arange(n, dtype=np.float64) - n // 2) / n
+    l = np.broadcast_to(base[None, :], (n, n)) * theta
+    m = np.broadcast_to(base[:, None], (n, n)) * theta
+    ph = 1.0 - np.sqrt(1.0 - (l * l + m * m))
+    ff = np.exp(2j * np.pi * w * ph)
+    lo = (n * qpx) // 2 - n // 2
+    padff = np.zeros((n * qpx, n * qpx), np.complex128)
+    padff[lo:lo + n, lo:lo + n] = ff
+    af = np.fft.fftshift(np.fft.ifft2(np.fft.ifftshift(padff)))
+    cons = af.shape[-1] // 2 - qpx * (npix_kern // 2)
+    rows = cons - np.arange(qpx)[:, None] + qpx * np.arange(npix_kern)
+    out = af[rows[:, None, :, None], rows[None, :, None, :]]
+    return out * (qpx * qpx)
+
+
+def write_wkern_file(path: str, centers, cfg: SyntheticConfig) -> None:
+    """Write the oversampled w-kernel bank, one unconjugated plane per
+    centre, under ``/wkern/<theta>/<w>/kern``."""
+    h5.create_file(path)
+    for w in centers:
+        kern = w_kernel_host(cfg.theta, float(w), cfg.qpx, cfg.npix_ff,
+                             cfg.npix_kern)
+        h5.write_dataset(path, schema.wkern_dataset(
+            cfg.theta, schema.fmt_float(w)), kern)
+
+
 def write_akern_file(path: str, obs: dict, cfg: SyntheticConfig) -> None:
     """Near-delta A-kernels per antenna at two times and two frequencies
     (the reference's file, byte for byte, from the same seed)."""
@@ -139,12 +189,14 @@ def write_akern_file(path: str, obs: dict, cfg: SyntheticConfig) -> None:
 
 
 def generate_dataset(dirpath: str, cfg: SyntheticConfig = SyntheticConfig()):
-    """Write ``vis.h5`` and ``akern.h5`` (no ``wkern.h5``: nothing in the
-    port reads a w-kernel bank yet); returns ``(paths dict, obs dict)``."""
+    """Write ``vis.h5``, ``wkern.h5`` and ``akern.h5``; returns ``(paths
+    dict, obs dict)``."""
     os.makedirs(dirpath, exist_ok=True)
     obs = simulate_observation(cfg)
     paths = {"vis": os.path.join(dirpath, "vis.h5"),
+             "wkern": os.path.join(dirpath, "wkern.h5"),
              "akern": os.path.join(dirpath, "akern.h5")}
     write_vis_file(paths["vis"], obs)
+    write_wkern_file(paths["wkern"], w_plane_centers(obs, cfg), cfg)
     write_akern_file(paths["akern"], obs, cfg)
     return paths, obs

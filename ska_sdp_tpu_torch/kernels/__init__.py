@@ -1,5 +1,9 @@
-"""Gridder and degridder dispatch (port of the IDG and IDG-AW parts of
-``ska_sdp_tpu/kernels/__init__.py``).
+"""Gridder and degridder dispatch (port of the bank w-projection, IDG and
+IDG-AW parts of ``ska_sdp_tpu/kernels/__init__.py``).
+
+The bank w-projection pair ``wproj_gridder`` / ``wproj_degridder`` lives in
+``kernels/wproj.py``: one CUDA kernel each serves every support and grid
+size, so unlike the reference there is no fallback route to count.
 
 Plain IDG rides the streamed run kernels with unit screens and zero pair
 ids: every record keys to (pair 0, uv tile), runs are the occupied tiles
@@ -20,6 +24,18 @@ import torch
 from ..ops.idg_aw import auto_fit_margin
 from .idg_aw_records import STREAM_SUBGRIDS
 from .idg_aw_stream import idg_aw_degridder_stream, idg_aw_gridder_stream
+from .wproj import wproj_degridder, wproj_gridder
+
+__all__ = [
+    "drop_counters",
+    "idg_aw_degridder",
+    "idg_aw_gridder",
+    "idg_degridder",
+    "idg_gridder",
+    "reset_drop_counters",
+    "wproj_degridder",
+    "wproj_gridder",
+]
 
 _drop_counts: dict[str, int] = {}
 _warned: set[str] = set()

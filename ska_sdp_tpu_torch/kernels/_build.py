@@ -62,3 +62,17 @@ def load(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(lib_path))
     _loaded[name] = lib
     return lib
+
+
+def bind(name: str, entry: str, argtypes):
+    """Build (if needed) and load ``csrc/<name>.cu``; returns the entry
+    point with its ctypes signature (``int`` result: a ``cudaError_t``)
+    and the library's ``<name>_error_string`` function."""
+    lib = load(name)
+    fn = getattr(lib, entry)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    err = getattr(lib, f"{name}_error_string")
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    return fn, err

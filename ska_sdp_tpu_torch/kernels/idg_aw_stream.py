@@ -31,6 +31,7 @@ import torch
 
 from ..ops.idg import _dft_matrix, kaiser_taper
 from ..ops.idg_aw import PAIR_SHIFT
+from ._build import bind
 from .idg_aw_records import (STREAM_SUBGRIDS, idg_aw_degrid_records,
                              idg_aw_run_records)
 
@@ -241,22 +242,6 @@ def _check_cuda_inputs(recs, runs, screens, S: int, rows: int = 5):
             raise ValueError("kernel inputs must be contiguous")
 
 
-def _bind(name: str, entry: str, argtypes):
-    """Build (if needed) and load ``csrc/<name>.cu``; returns the entry
-    point with its ctypes signature and the library's error-string
-    function."""
-    from ._build import load
-
-    lib = load(name)
-    fn = getattr(lib, entry)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    err = getattr(lib, f"{name}_error_string")
-    err.argtypes = [ctypes.c_int]
-    err.restype = ctypes.c_char_p
-    return fn, err
-
-
 def _phase_scalars(S: int, theta: float, N: int, Nx: int):
     """The kernels' float arguments ``(2π/S, θ/S, θ_x/S)``."""
     return (float(np.float32(2.0 * np.pi / S)), float(theta / S),
@@ -280,7 +265,7 @@ def _grid_from_records_cuda(recs, starts, ends, y0, x0, ia1, ia2, screens,
     out = torch.zeros((HP, WP), dtype=torch.complex64, device=dev)
     F, FT = _dft_factors(S, taper_beta, dev)
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn, err = _bind("idg_grid", "idg_grid_stream",
+    fn, err = bind("idg_grid", "idg_grid_stream",
                     [vp, ctypes.c_longlong, vp, vp, vp, vp, vp, vp, ci, vp,
                      ci, vp, vp, vp, ci, ci, cf, cf, cf, vp])
     with torch.cuda.device(dev):
@@ -325,7 +310,7 @@ def _degrid_from_records_cuda(recs, starts, ends, y0, x0, ia1, ia2, order_s,
     out = torch.zeros((n,), dtype=torch.complex64, device=dev)
     F, _ = _dft_factors(S, taper_beta, dev)
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn, err = _bind("idg_degrid", "idg_degrid_stream",
+    fn, err = bind("idg_degrid", "idg_degrid_stream",
                     [vp, ctypes.c_longlong, vp, vp, vp, vp, vp, vp, ci, vp,
                      vp, ci, vp, vp, ci, ci, cf, cf, cf, vp, vp])
     with torch.cuda.device(dev):

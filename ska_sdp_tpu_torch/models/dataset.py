@@ -1,6 +1,6 @@
-"""IDG and IDG-AW imaging and prediction pipelines (port of the
-``--mode idg``, ``--mode aw --idg`` and ``--mode predict --idg [--aterms]``
-paths of ``ska_sdp_tpu/models/dataset.py``).
+"""Bank w-projection, IDG and IDG-AW imaging and prediction pipelines (port
+of the ``--mode w``, ``--mode idg``, ``--mode aw --idg`` and ``--mode
+predict [--idg [--aterms]]`` paths of ``ska_sdp_tpu/models/dataset.py``).
 
 Each path has an in-memory entry that runs on a given device and a file
 entry that reads HDF5, calls it and writes HDF5:
@@ -8,24 +8,27 @@ entry that reads HDF5, calls it and writes HDF5:
   ==========================  ====================  ==================
   path                        in memory             file
   ==========================  ====================  ==================
+  w-projection imaging        ``w_image``           ``w_gridding``
   IDG imaging                 ``idg_image``         ``idg_gridding``
   IDG-AW imaging              ``aw_idg_image``      ``aw_gridding``
+  w-projection predict        ``w_predict_vis``     ``w_predict``
   IDG predict                 ``idg_predict_vis``   ``idg_predict``
   IDG-AW predict              ``aw_predict_vis``    ``aw_predict``
   ==========================  ====================  ==================
 
-The imaging programs are the reference's ``_idg_pipeline`` and
-``_aw_idg_pipeline``:
+The imaging programs are the reference's ``_wproj_pipeline``,
+``_idg_pipeline`` and ``_aw_idg_pipeline``:
 
     uvw → wavelengths → uniform weights → v ≥ 0 mirroring → gridder
-        → Hermitian completion → centred inverse FFT → ÷ fine taper
-        → padded-FOV crop → image max
+        → Hermitian completion → centred inverse FFT
+        [IDG: → ÷ fine taper → padded-FOV crop] → image max
 
-and the predict programs its ``_idg_predict_pipeline`` and
-``_aw_idg_predict_pipeline``, the adjoint walk:
+where the bank gridder picks each record's w-plane by ``find_closest`` on
+the mirrored w.  The predict programs (``_predict_pipeline``,
+``_idg_predict_pipeline``, ``_aw_idg_predict_pipeline``) walk back:
 
-    model → padded-FOV embedding → ÷ fine taper → centred FFT
-        → degridder at the records' uvw in wavelengths
+    model [IDG: → padded-FOV embedding → ÷ fine taper] → centred FFT
+        → degridder at the records' unmirrored uvw in wavelengths
 
 There is no PSF normalisation on these paths.
 """
@@ -41,12 +44,14 @@ import torch
 from ..config import ImagingConfig
 from ..io import h5, schema
 from ..kernels import (_note_drops, idg_aw_degridder, idg_aw_gridder,
-                       idg_degridder, idg_gridder)
+                       idg_degridder, idg_gridder, wproj_degridder,
+                       wproj_gridder)
 from ..ops import (doweight, fft_centered, ifft_centered, make_grid_hermitian,
                    mirror_uvw, uvw_lambda)
 from ..ops.idg import (fov_pad_finish, fov_pad_geometry, fov_pad_start,
                        kaiser_taper, taper_fine)
 from ..ops.idg_aw import aw_screens_host
+from ..ops.search import find_closest
 from ..types import precision as _precision
 
 
@@ -86,13 +91,17 @@ def vis_data_from_observation(obs: dict) -> VisData:
                    vis_chan, freqs)
 
 
+def _require_file(path: str) -> None:
+    p = h5.fix_ext(path)
+    if not os.path.exists(p):
+        raise FileNotFoundError(f"input HDF5 file does not exist: {p}")
+
+
 def load_vis_data(datfile: str) -> VisData:
     """Read the ``/vis`` tree.  The trailing axis of ``/vis/vis`` is the
     channel; ``vis``/``frequency`` keep channel 0 (the reference
     semantics), ``vis_chan``/``frequencies`` hold every channel."""
-    p = datfile if datfile.endswith(".h5") else datfile + ".h5"
-    if not os.path.exists(p):
-        raise FileNotFoundError(f"input HDF5 file does not exist: {p}")
+    _require_file(datfile)
     raw = h5.read_dataset(datfile, schema.VIS_VIS, dtype=np.complex128)
     uvw = h5.read_dataset(datfile, schema.VIS_UVW, dtype=np.float64)
     a1 = h5.read_dataset(datfile, schema.VIS_ANTENNA1, dtype=np.int64)
@@ -235,9 +244,7 @@ def get_akernels(afile: str, theta: float, t: float, f: float) -> np.ndarray:
     ``[nant, s, s]`` complex128.  The closest frequency is searched in the
     frequency list (the reference's fix of the original, which searched
     the time list)."""
-    p = afile if afile.endswith(".h5") else afile + ".h5"
-    if not os.path.exists(p):
-        raise FileNotFoundError(f"input HDF5 file does not exist: {p}")
+    _require_file(afile)
     grp = schema.akern_group(theta)
     ants = schema.parse_sorted(h5.list_group(afile, grp))
     a0 = ants[0][1]
@@ -566,6 +573,132 @@ def aw_predict(afile: str, datfile: str, modelfile: str,
                          lam=config.grid.lam, n=n, subgrid=subgrid,
                          taper_beta=taper_beta, fov_pad=fov_pad,
                          precision=config.precision_name, device=device)
+    pred = res.vis.cpu().numpy()
+    _write_prediction(outfile, pred)
+    return pred, res.peak
+
+
+# ---------------------------------------------------------------------------
+# Bank w-projection imaging and prediction
+# ---------------------------------------------------------------------------
+
+
+class WImage(NamedTuple):
+    image: torch.Tensor    # [n, n] real, on the imaging device
+    image_max: float
+
+
+def get_wkernels(wfile: str, theta: float):
+    """The w-kernel bank sorted by plane centre: ``([nw, qpx, qpx, s, s]
+    complex128 unconjugated, [nw] float64 centres)``."""
+    _require_file(wfile)
+    wbins = schema.parse_sorted(h5.list_group(wfile,
+                                              schema.wkern_group(theta)))
+    names = [schema.wkern_dataset(theta, name) for _, name in wbins]
+    bank = h5.read_datasets_stacked(wfile, names, dtype=np.complex128)
+    return bank, np.array([v for v, _ in wbins], dtype=np.float64)
+
+
+def _wproj_chunk(n: int) -> int:
+    """The reference's visibility chunk of the plain scatter and gather."""
+    return min(8192, max(256, n))
+
+
+def _wproj_pipeline(bank_conj, wbins, uvw, f, vis, *, theta: float,
+                    lam: int, chunk: int):
+    """The w-projection imaging program on ``uvw``'s device: weights and
+    mirroring as IDG's inputs, each record's w-plane closest to its
+    mirrored w, the bank scatter, Hermitian completion and the centred
+    inverse FFT.  Returns ``(img, img.max())`` as tensors."""
+    g = idg_grid_inputs(uvw, f, vis, theta=theta, lam=lam)
+    wbin = find_closest(wbins, g.w)
+    guv = wproj_gridder(bank_conj, g.grid_shape, g.p, wbin, g.vis,
+                        chunk=chunk)
+    img = ifft_centered(make_grid_hermitian(guv)).real
+    return img, torch.max(img)
+
+
+def _bank(wkerns, wbins, prec, device):
+    """``(bank, centres)`` tensors on ``device`` in the run's precision."""
+    return (torch.as_tensor(wkerns, dtype=prec.complex, device=device),
+            torch.as_tensor(wbins, dtype=prec.real, device=device))
+
+
+def w_image(vis_data: VisData, wkerns, wbins, *, theta: float = 0.008,
+            lam: int = 300000, n: Optional[int] = None,
+            precision: str = "single", device="cuda") -> WImage:
+    """w-projection dirty image of in-memory visibilities through the
+    unconjugated bank ``wkerns`` ``[nw, qpx, qpx, s, s]`` with plane
+    centres ``wbins`` ``[nw]`` (numpy or tensors) on ``device``
+    (``"cuda"`` runs the CUDA scatter, ``"cpu"`` its plain version).
+    ``n`` caps the record count."""
+    prec = _precision(precision)
+    uvw, f, vis = idg_inputs(vis_data, n=n, precision=precision,
+                             device=device)
+    bank, wb = _bank(wkerns, wbins, prec, device)
+    img, mx = _wproj_pipeline(torch.conj(bank).resolve_conj(), wb, uvw, f,
+                              vis, theta=theta, lam=lam,
+                              chunk=_wproj_chunk(vis.shape[0]))
+    return WImage(img, float(mx))
+
+
+def w_gridding(wfile: str, datfile: str, n: Optional[int] = None,
+               outfile: Optional[str] = None,
+               config: ImagingConfig = ImagingConfig(), device="cuda"):
+    """w-projection imaging run from HDF5 files: ``/vis`` and the
+    ``/wkern`` bank in, optionally ``/img`` (float64) out.  Returns
+    ``(image max, image as numpy)``."""
+    data = load_vis_data(datfile)
+    wkerns, wbins = get_wkernels(wfile, config.grid.theta)
+    res = w_image(data, wkerns, wbins, theta=config.grid.theta,
+                  lam=config.grid.lam, n=n, precision=config.precision_name,
+                  device=device)
+    img = res.image.cpu().numpy()
+    if outfile is not None:
+        h5.create_file(outfile)
+        h5.write_dataset(outfile, schema.IMG_DATASET, img.astype(np.float64))
+    return res.image_max, img
+
+
+def _predict_pipeline(wkerns, wbins, img, uvw, f, *, theta: float, lam: int,
+                      chunk: int):
+    """Model image → centred FFT → bank gather at the records' unmirrored
+    uvw in wavelengths, each with the w-plane closest to its w."""
+    uvw0 = uvw_lambda(f, uvw)
+    grid = fft_centered(img.to(wkerns.dtype))
+    wbin = find_closest(wbins, uvw0[:, 2])
+    return wproj_degridder(wkerns, grid, uvw0 / lam, wbin, chunk=chunk)
+
+
+def w_predict_vis(vis_data: VisData, wkerns, wbins, model, *,
+                  theta: float = 0.008, lam: int = 300000,
+                  n: Optional[int] = None, precision: str = "single",
+                  device="cuda") -> Prediction:
+    """w-projection prediction of the first ``n`` records' visibilities
+    from the model image ``[n_grid, n_grid]`` through the unconjugated bank
+    on ``device`` (``"cuda"`` runs the CUDA gather, ``"cpu"`` its plain
+    version).  Nothing is dropped on this path."""
+    prec = _precision(precision)
+    img = _model_tensor(model, theta, lam, prec, device)
+    uvw, f = _uvw_freq(vis_data, n, prec, device)
+    bank, wb = _bank(wkerns, wbins, prec, device)
+    vis = _predict_pipeline(bank, wb, img, uvw, f, theta=theta, lam=lam,
+                            chunk=_wproj_chunk(uvw.shape[0]))
+    return _prediction(vis, 0, "wproj_degridder")
+
+
+def w_predict(wfile: str, datfile: str, modelfile: str,
+              n: Optional[int] = None, outfile: Optional[str] = None,
+              config: ImagingConfig = ImagingConfig(), device="cuda"):
+    """w-projection prediction run from HDF5 files: ``/vis`` records, the
+    ``/wkern`` bank and the ``/img`` model in, ``/vis/model`` out.
+    Returns ``(predicted ndarray, peak |vis|)``."""
+    data = load_vis_data(datfile)
+    wkerns, wbins = get_wkernels(wfile, config.grid.theta)
+    img = h5.read_dataset(modelfile, schema.IMG_DATASET)
+    res = w_predict_vis(data, wkerns, wbins, img, theta=config.grid.theta,
+                        lam=config.grid.lam, n=n,
+                        precision=config.precision_name, device=device)
     pred = res.vis.cpu().numpy()
     _write_prediction(outfile, pred)
     return pred, res.peak

@@ -168,7 +168,8 @@ class TestAWPipeline:
 
 class TestCLI:
     def test_make_data_writes_vis_and_akern(self, data_dir):
-        assert sorted(os.listdir(data_dir)) == ["akern.h5", "vis.h5"]
+        assert sorted(os.listdir(data_dir)) == ["akern.h5", "vis.h5",
+                                                "wkern.h5"]
         ak = ds.get_akernels(os.path.join(data_dir, "akern.h5"), THETA,
                              55000.0, 1.5e8)
         np.testing.assert_array_equal(
@@ -211,8 +212,11 @@ class TestCLI:
     @pytest.mark.parametrize("argv,rc,msg", [
         (["--mode", "predict", "--idg"], 1, "requires --model"),
         (["--mode", "idg", "--aterms"], 1, "--aterms requires"),
-        (["--mode", "predict", "--model", "m.h5"], 2, "not yet ported"),
+        (["--mode", "predict", "--model", "m.h5", "--channels", "4"], 2,
+         "not yet ported"),
         (["--mode", "aw", "--idg", "-i", "nowhere"], 1,
+         "input file not found"),
+        (["--mode", "predict", "--model", "m.h5", "-i", "nowhere"], 1,
          "input file not found"),
     ])
     def test_error_surfaces(self, argv, rc, msg, capsys):
