@@ -2,7 +2,7 @@
 """Chip smoke test of ska_sdp_tpu_torch: the ported imaging and prediction
 paths end to end on one NVIDIA GPU, through the hand-written CUDA kernels
 (the streamed IDG gridder and degridder, the bank w-projection scatter and
-gather).
+gather, the fused AW gridder).
 
     python3 chip_smoke.py
 
@@ -12,8 +12,8 @@ result line):
 1. device: a CUDA card is required (no CPU fallback); versions and the
    card's name and power limit as ``nvidia-smi`` reports them;
 2. build: compile ``ska_sdp_tpu_torch/csrc/idg_grid.cu``,
-   ``csrc/idg_degrid.cu``, ``csrc/wproj_grid.cu`` and
-   ``csrc/wproj_degrid.cu`` with nvcc for sm_90a, one nvcc each, all
+   ``csrc/idg_degrid.cu``, ``csrc/wproj_grid.cu``, ``csrc/wproj_degrid.cu``
+   and ``csrc/aw_grid.cu`` with nvcc for sm_90a, one nvcc each, all
    started together; print the gridder's build time and ptxas resource use;
 3. gridder parity on the card against the plain PyTorch version on the
    same inputs: a mid-size IDG-AW case (512² grid, S=64, 16 antennas of
@@ -77,7 +77,30 @@ result line):
     float64 direct DFT;
 14. w-projection times (CUDA events, median of 7 after a warm-up): each
     kernel and its plain version at the full-size shape, the bank build,
-    and ``w_image`` and ``w_predict_vis`` end to end.
+    and ``w_image`` and ``w_predict_vis`` end to end;
+15. build: the fused AW gridder's build time and ptxas resource use;
+16. fused AW kernel parity on the card against ``aw_fused_plain`` on the
+    same records and tables: grid rel-L2 ≤ 5e-5 (float32 sums in atomic
+    order) and the kernel's count of placed records equal to the count of
+    valid records, at (a) 512², 16 antennas, nw=4, qpx=4, random bank and
+    A-kernels, records beyond the edges, s=15 and s=7; (b) the reference
+    benchmark's fused-AW shape (2400², NW=32, QPX=8, 15², 64 antennas,
+    ``bench_records``' first 524,288 records, random A-kernels and
+    antennas from seed 1); (c) the same records and tables at 4800²
+    (θ=0.016: the fold of the tiled TPU kernel); (d) the main path's 512
+    stations (the fold of the slab route);
+17. fused AW main path: ``aw_image`` of phase 4's observation with phase
+    13's bank and near-delta A-kernels for its 512 stations
+    (``io.synthetic.akern_stamps``), with the launch counts reset just
+    before; checks a finite image, at least one launch, the peak at a
+    source, every source's 5×5 window above 0.25·max, and image rel-L2 ≤
+    1e-4 over the central 75% against the same pipeline on
+    ``aw_fused_plain``; printed without a bound, its rel-L2 against phase
+    13's ``w_image``;
+18. fused AW times (CUDA events, median of 7 after a warm-up): the kernel
+    and ``aw_fused_plain`` at shapes (b) and (d), the tables (pair remap,
+    pair table, w-tap spectra) at 64 and 512 stations, and ``aw_image`` end
+    to end.
 
 The line before last is the ``nvidia-smi`` name and power limit, the one
 before it a JSON summary of the kernels (``replaces`` lists each TPU
@@ -89,7 +112,9 @@ from this run's inputs); the last line is
 
 from __future__ import annotations
 
+import functools
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -261,6 +286,16 @@ def w_bank_inputs(torch, obs, dev):
     return centers, lambda: w_kernel(THETA, centers_t, opts, device=dev)
 
 
+def main_akerns():
+    """Phase 17's near-delta 15² A-kernels of the observation's 512
+    stations, ``[512, 15, 15]`` complex128, as ``--make-data`` writes them
+    at the first time and frequency."""
+    from ska_sdp_tpu_torch.io.synthetic import SyntheticConfig, akern_stamps
+
+    return akern_stamps(SyntheticConfig(theta=THETA, lam=LAM, nant=512,
+                                        seed=1234))[:, 0, 0]
+
+
 def main() -> int:
     import torch
 
@@ -300,7 +335,8 @@ def main() -> int:
         _build.load(kernel)
         return time.perf_counter() - t
 
-    kernels_cu = ("idg_grid", "idg_degrid", "wproj_grid", "wproj_degrid")
+    kernels_cu = ("idg_grid", "idg_degrid", "wproj_grid", "wproj_degrid",
+                  "aw_grid")
     pool = ThreadPoolExecutor(max_workers=len(kernels_cu))
     builds = {k: pool.submit(build, k) for k in kernels_cu}
     pool.shutdown(wait=False)
@@ -445,7 +481,12 @@ def main() -> int:
         print(f"build: {k}.cu for sm_90a in {builds[k].result():.1f} s "
               "(started with idg_grid.cu)")
         print_ptxas(_build.build_log, k)
-    wproj = wproj_phases(torch, dev, card, vd, obs, img, model, truth)
+    wproj, img_w = wproj_phases(torch, dev, card, vd, obs, img, model,
+                                truth)
+    print(f"build: aw_grid.cu for sm_90a in "
+          f"{builds['aw_grid'].result():.1f} s (started with idg_grid.cu)")
+    print_ptxas(_build.build_log, "aw_grid")
+    aw = aw_phases(torch, dev, card, vd, obs, img_w)
 
     S = SUBGRID
     grid_ops = 8 * S * S * n_vis + 16 * S ** 3 * n_runs
@@ -473,7 +514,7 @@ def main() -> int:
         "replaces": "ska_sdp_tpu/kernels/idg_aw_stream_pallas.py:475, "
                     "ska_sdp_tpu/kernels/idg_aw_stream_pallas.py:1014",
         **degrid,
-    }, *wproj]}))
+    }, *wproj, aw]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
@@ -738,13 +779,15 @@ def degrid_phases(torch, dev, card, mid, vd, obs, grid_full):
             "bound_by": bound_by, "library_ms": None}, model, truth
 
 
-def bench_records(n_rec: int = 1 << 20):
+@functools.lru_cache(maxsize=1)
+def bench_records():
     """The reference benchmark's bank-path inputs (``bench.py:93-97,
     212-223``): a random NW=32, QPX=8, 15² bank, centres on ±4000 λ, 2²⁰
     uniform records (uv within ±0.42·lam, w within ±3800 λ), visibilities
     and a random 2400² grid, from numpy seed 0; mirrored and binned as
-    ``bench.py``'s ``_prep`` does.  Returns numpy arrays."""
-    nw, qpx, s = 32, 8, 15
+    ``bench.py``'s ``_prep`` does.  Returns numpy arrays, drawn once and
+    shared by the phases that use them."""
+    nw, qpx, s, n_rec = 32, 8, 15, 1 << 20
     n_grid = int(round(THETA * LAM))
     rng = np.random.default_rng(0)
     bank = (rng.standard_normal((nw, qpx, qpx, s, s)).astype(np.float32)
@@ -1008,7 +1051,206 @@ def wproj_phases(torch, dev, card, vd, obs, img_idg, model, truth):
             "ms": ms[f"{key} kernel (CUDA)"],
             "plain_ms": ms[f"{key} plain (PyTorch)"],
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
-    return entries
+    return entries, img
+
+
+def aw_phases(torch, dev, card, vd, obs, img_w):
+    """Phases 16-18.  ``vd``/``obs`` are the main path's observation and
+    ``img_w`` phase 13's ``w_image``.  Returns the fused AW gridder's
+    entry of the ``kernels`` line."""
+    from ska_sdp_tpu_torch.kernels import aw_fused
+    from ska_sdp_tpu_torch.models import dataset as ds
+    from ska_sdp_tpu_torch.ops import (doweight, ifft_centered,
+                                       make_grid_hermitian, mirror_uvw,
+                                       uvw_lambda)
+    from ska_sdp_tpu_torch.ops.search import find_closest
+
+    prep = aw_fused.aw_records_tables    # as aw_gridder builds them
+
+    def parity(label, rec, pt, ws, vis, shape):
+        placed = torch.zeros(1, dtype=torch.int32, device=dev)
+        k = aw_fused.aw_fused_grid(pt, ws, rec, vis, shape, n_valid=placed)
+        pl = aw_fused.aw_fused_plain(pt, ws, rec, vis, shape)
+        torch.cuda.synchronize()
+        kn, pn = k.cpu().numpy(), pl.cpu().numpy()
+        err = rel_l2(kn, pn)
+        n_valid, n_placed = int(rec.valid.sum()), int(placed)
+        print(f"aw parity {label}: grid rel-L2 {err:.3e} (bound "
+              f"{KERNEL_TOL}); valid records {n_valid} of {vis.shape[0]}, "
+              f"placed by the kernel {n_placed}; pair rows {pt.shape[0]}")
+        if not err <= KERNEL_TOL:
+            raise AssertionError(f"aw parity {label} failed: {err}")
+        if n_placed != n_valid:
+            raise AssertionError(f"aw valid counts differ: {n_valid}, "
+                                 f"{n_placed}")
+        return float(np.abs(kn - pn).max()), pl
+
+    def to_dev(*arrays):
+        return [torch.as_tensor(a, device=dev) for a in arrays]
+
+    def cplx(rng, shape):
+        return (rng.standard_normal(shape)
+                + 1j * rng.standard_normal(shape)).astype(np.complex64)
+
+    # ---- 16a. mid-size parity, s = 15 and s = 7 ---------------------------
+    for s in (15, 7):
+        rng = np.random.default_rng(40 + s)
+        n_mid = 200_000
+        wk, ak, p, wbin, a1, a2, vis = to_dev(
+            cplx(rng, (4, 4, 4, s, s)), cplx(rng, (16, s, s)),
+            rng.uniform(-0.53, 0.53, (n_mid, 3)).astype(np.float32),
+            rng.integers(0, 4, n_mid).astype(np.int32),
+            rng.integers(0, 16, n_mid).astype(np.int32),
+            rng.integers(0, 16, n_mid).astype(np.int32), cplx(rng, n_mid))
+        rec, pt, ws = prep(wk, ak, (512, 512), p, wbin, a1, a2)
+        parity(f"mid (512², s={s}, 16 ant, nw=4, qpx=4, {n_mid} records, "
+               "|p| ≤ 0.53)", rec, pt, ws, vis, (512, 512))
+
+    # ---- 16b/c. the benchmark's fused-AW shape, and the 4800² fold --------
+    # the benchmark's first 524,288 records, as bench.py:726 slices them
+    n_b = 1 << 19
+    b = bench_records()
+    rng = np.random.default_rng(1)
+    bank_b, centers_b, uvw_b, vis_b, ak_b, a1_b, a2_b = to_dev(
+        b["bank"], b["centers"], b["uvw"][:n_b], b["vis"][:n_b],
+        cplx(rng, (64, 15, 15)),
+        rng.integers(0, 64, n_b).astype(np.int32),
+        rng.integers(0, 64, n_b).astype(np.int32))
+    uvw1_b, vis1_b = mirror_uvw(uvw_b, vis_b)
+    wbin_b = find_closest(centers_b, uvw1_b[:, 2])
+    p_b = uvw1_b / LAM
+    n_grid = int(round(THETA * LAM))
+    shape_b = (n_grid, n_grid)
+    rec_b, pt_b, ws_b = prep(bank_b, ak_b, shape_b, p_b, wbin_b, a1_b, a2_b)
+    parity(f"bench ({n_grid}², NW=32, QPX=8, 15², 64 ant, {n_b} records)",
+           rec_b, pt_b, ws_b, vis1_b, shape_b)
+    n_lg = int(round(0.016 * LAM))
+    rec_lg, pt_lg, ws_lg = prep(bank_b, ak_b, (n_lg, n_lg), p_b, wbin_b,
+                                a1_b, a2_b)
+    parity(f"fold ({n_lg}², θ=0.016, the same records and tables)", rec_lg,
+           pt_lg, ws_lg, vis1_b, (n_lg, n_lg))
+    del rec_lg, pt_lg, ws_lg
+
+    # ---- 16d/17. the main path: 512 stations ------------------------------
+    n_vis = vd.vis.shape[0]
+    centers, build_bank = w_bank_inputs(torch, obs, dev)
+    bank = build_bank()
+    ak_main = main_akerns()
+    # the same pipeline as aw_image, on the tables and records the kernel
+    # gets, for the shape (d) parity and the plain image
+    uvw, f, vis = ds.idg_inputs(vd, device=dev)
+    uvw0 = uvw_lambda(f, uvw)
+    wt = doweight(THETA, LAM, uvw0, torch.ones_like(vis))
+    uvw1, vis1 = mirror_uvw(uvw0, vis)
+    a1, a2 = to_dev(vd.antenna1.astype(np.int32),
+                    vd.antenna2.astype(np.int32))
+    wbin = find_closest(torch.as_tensor(centers, dtype=torch.float32,
+                                        device=dev), uvw1[:, 2])
+    bank64 = bank.to(torch.complex64)
+    ak64 = torch.as_tensor(ak_main, dtype=torch.complex64, device=dev)
+    shape = (n_grid, n_grid)
+    rec_d, pt_d, ws_d = prep(bank64, ak64, shape, uvw1 / LAM, wbin, a1, a2)
+    vis_d = wt * vis1
+    max_abs, guv_plain = parity(
+        f"main ({n_grid}², 32 planes, qpx=8, 15², 512 stations, {n_vis} "
+        "vis)", rec_d, pt_d, ws_d, vis_d, shape)
+    img_plain = ifft_centered(make_grid_hermitian(guv_plain)).real
+    img_plain = img_plain.cpu().numpy()
+
+    aw_fused.reset_launch_count()
+    res = ds.aw_image(vd, bank, centers, ak_main, theta=THETA, lam=LAM,
+                      device=dev)
+    torch.cuda.synchronize()
+    launches = aw_fused.launch_count(aw_fused.GRID_KERNEL)
+    img = res.image.cpu().numpy()
+    n = img.shape[0]
+    print(f"aw main path: aw_image {n}² from {n_vis} vis, 512 near-delta "
+          f"A-kernels, image max {res.image_max:.6g}, kernel launches "
+          f"{launches}")
+    if not np.isfinite(img).all():
+        raise AssertionError("AW image has non-finite pixels")
+    if launches < 1:
+        raise AssertionError("aw_image did not launch the CUDA AW gridder")
+    iy, ix = np.unravel_index(np.argmax(img), img.shape)
+    srcs = obs["sources"]
+    dists = [abs(iy - (n / 2 + m * LAM)) + abs(ix - (n / 2 + l * LAM))
+             for l, m, _ in srcs]
+    print(f"  peak at ({iy}, {ix}), L1 distance to nearest source "
+          f"{min(dists):.2f} px (bound 3)")
+    if min(dists) > 3.0:
+        raise AssertionError("AW image peak is not at a simulated source")
+    for l, m, _ in srcs:
+        cy, cx = int(round(n / 2 + m * LAM)), int(round(n / 2 + l * LAM))
+        win = img[max(0, cy - 2):cy + 3, max(0, cx - 2):cx + 3]
+        if not win.max() > 0.25 * img.max():
+            raise AssertionError(f"source at ({l}, {m}) not recovered")
+    print("  every source's 5×5 window above 0.25 of the image max")
+    err_img = rel_l2(crop75(img), crop75(img_plain))
+    print(f"  image vs plain-kernel pipeline: rel-L2 {err_img:.3e} over the "
+          f"central 75% (bound {IMAGE_TOL}); vs phase 13's w_image (no "
+          f"bound: near-delta A-kernels): "
+          f"{rel_l2(crop75(img), crop75(img_w)):.3e}")
+    if not err_img <= IMAGE_TOL:
+        raise AssertionError(f"AW image parity failed: {err_img}")
+
+    # ---- 18. times ----------------------------------------------------------
+    ms = {}
+    for label, count, fn in (
+            ("kernel (CUDA), bench shape", n_b, lambda: aw_fused.aw_fused_grid(
+                pt_b, ws_b, rec_b, vis1_b, shape_b)),
+            ("plain (PyTorch), bench shape", n_b,
+             lambda: aw_fused.aw_fused_plain(pt_b, ws_b, rec_b, vis1_b,
+                                             shape_b)),
+            ("kernel (CUDA), main path", n_vis,
+             lambda: aw_fused.aw_fused_grid(pt_d, ws_d, rec_d, vis_d, shape)),
+            ("plain (PyTorch), main path", n_vis,
+             lambda: aw_fused.aw_fused_plain(pt_d, ws_d, rec_d, vis_d,
+                                             shape)),
+            ("tables, 64 stations", n_b, lambda: prep(
+                bank_b, ak_b, shape_b, p_b, wbin_b, a1_b, a2_b)),
+            ("tables, 512 stations", n_vis, lambda: prep(
+                bank64, ak64, shape, uvw1 / LAM, wbin, a1, a2)),
+            ("aw_image end to end", n_vis, lambda: ds.aw_image(
+                vd, bank, centers, ak_main, theta=THETA, lam=LAM,
+                device=dev))):
+        ms[label] = t = timed_ms(torch, fn)
+        print(f"time aw {label}: {t:.3f} ms = {count / t / 1e3:.2f} M vis/s "
+              f"[{card}]")
+
+    # bound from this run's inputs: the operations of the valid records,
+    # and the wrapper's inputs read once and the grid written once.  Per
+    # record, P⊙Ŵ is 6m² flop and vis·conj(patch) 6s²; the sandwich
+    # S·X·Sᵀ is either dense (8·(m²s + s²m): m rows then s columns of
+    # complex multiply-adds) or, since S is s rows of a centred m-point
+    # DFT times m, radix-2 FFTs of the m rows and then of the s kept
+    # columns, 5·m·log2(m) flop each: (m + s)·5·m·log2(m).  The smaller
+    # count is the least work the function needs (the FFT's at s=15,
+    # m=32: 45,094 against 187,974 flop per record).
+    s, m = 15, pt_d.shape[-1]
+    per_rec_dense = 8 * (m * m * s + s * s * m) + 6 * m * m + 6 * s * s
+    per_rec_fft = ((m + s) * 5 * m * int(math.log2(m)) + 6 * m * m
+                   + 6 * s * s)
+    n_valid = int(rec_d.valid.sum())
+    ops = n_valid * min(per_rec_dense, per_rec_fft)
+    io = (nbytes(pt_d, ws_d, rec_d.y0, rec_d.x0, rec_d.pid, rec_d.kidx,
+                 vis_d) + shape[0] * shape[1] * 8)
+    bound_ms, bound_by = bound(ops, io)
+    print(f"aw_grid bound at the main path: {n_valid} valid records x "
+          f"{min(per_rec_dense, per_rec_fft)} flop (dense sandwich "
+          f"{per_rec_dense}, FFT sandwich {per_rec_fft}) = "
+          f"{ops / 1e9:.1f} GFLOP, {io / 1e6:.1f} MB -> {bound_ms:.3f} ms "
+          f"({bound_by}; dense count "
+          f"{bound(n_valid * per_rec_dense, io)[0]:.3f} ms)")
+    return {
+        "name": aw_fused.GRID_KERNEL, "route": "cuda",
+        "source": "ska_sdp_tpu_torch/csrc/aw_grid.cu",
+        "replaces": "ska_sdp_tpu/kernels/aw_fused_resident_pallas.py:95, "
+                    "ska_sdp_tpu/kernels/aw_fused_pallas.py:93, "
+                    "ska_sdp_tpu/kernels/patch_scatter_pallas.py:41",
+        "launches": launches, "max_abs_err": max_abs,
+        "ms": ms["kernel (CUDA), main path"],
+        "plain_ms": ms["plain (PyTorch), main path"],
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
 if __name__ == "__main__":

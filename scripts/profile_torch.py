@@ -5,15 +5,17 @@ on one NVIDIA GPU, under ``torch.profiler``.
     python3 scripts/profile_torch.py [--calls 5] [--warmup 3]
 
 At ``chip_smoke.py``'s shapes (2400² grid; 1,046,528 visibilities of the
-512-station observation for ``idg_image``, ``idg_predict_vis``, ``w_image``
-and ``w_predict_vis``; 1,048,320 pair-major track records with random
-A-kernels for ``aw_idg_image`` and ``aw_predict_vis``; the 32-plane, qpx=8,
-15² w-kernel bank built on the card), each entry is called ``--warmup``
-times, then ``--calls`` times under the profiler, each call ending in a
-synchronise.  Per entry it prints one JSON line: the wall time per call
-(host clock, profiler on), the device busy time per call (the sum of the
-device events: kernels, copies and memsets, on one stream), the idle share
-``1 − busy / wall``, and the three largest device items.  The card's name
+512-station observation for ``idg_image``, ``idg_predict_vis``,
+``w_image``, ``w_predict_vis`` and ``aw_image``; 1,048,320 pair-major
+track records with random A-kernels for ``aw_idg_image`` and
+``aw_predict_vis``; the 32-plane, qpx=8, 15² w-kernel bank built on the
+card; near-delta A-kernels of the 512 stations for ``aw_image``), each
+entry is called ``--warmup`` times, then ``--calls`` times under the
+profiler, each call ending in a synchronise.  Per entry it prints one
+JSON line: the wall time per call (host clock, profiler on), the device
+busy time per call (the sum of the device events: kernels, copies and
+memsets, on one stream), the idle share ``1 − busy / wall``, and the
+three largest device items.  The card's name
 and power limit come first.  It needs a CUDA card and stops without one.
 """
 
@@ -61,8 +63,8 @@ def main() -> int:
         print("error: no CUDA device visible", file=sys.stderr)
         return 1
     from chip_smoke import (BETA, LAM, SUBGRID, THETA, aw_track_inputs,
-                            main_observation, smi, snapped_model,
-                            w_bank_inputs)
+                            main_akerns, main_observation, smi,
+                            snapped_model, w_bank_inputs)
     from ska_sdp_tpu_torch.models import dataset as ds
 
     dev = torch.device("cuda", 0)
@@ -75,6 +77,7 @@ def main() -> int:
     vd_aw, ak = t_aw.vd, t_aw.ak
     centers, build_bank = w_bank_inputs(torch, obs, dev)
     bank = build_bank()
+    ak_main = main_akerns()
 
     kw = dict(theta=THETA, lam=LAM, device=dev)
     idg = dict(kw, subgrid=SUBGRID, taper_beta=BETA)
@@ -86,6 +89,7 @@ def main() -> int:
         "w_image": lambda: ds.w_image(vd, bank, centers, **kw),
         "w_predict_vis": lambda: ds.w_predict_vis(vd, bank, centers, model,
                                                   **kw),
+        "aw_image": lambda: ds.aw_image(vd, bank, centers, ak_main, **kw),
     }
     for name, fn in entries.items():
         wall, items = profile(torch, fn, args.calls, args.warmup)

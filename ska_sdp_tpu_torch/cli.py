@@ -1,10 +1,11 @@
-"""Command-line interface of the port (the ``--mode w``, ``--mode idg``,
-``--mode aw --idg``, ``--mode predict [--idg [--aterms]]`` and
-``--make-data`` surfaces of ``ska_sdp_tpu/cli.py``, same flag names and
-messages).
+"""Command-line interface of the port (the ``--mode aw [--idg]``, ``--mode
+w``, ``--mode idg``, ``--mode predict [--idg [--aterms]]`` and
+``--make-data`` surfaces of ``ska_sdp_tpu/cli.py``, same flag names,
+defaults and messages).
 
 Examples:
     python -m ska_sdp_tpu_torch.cli --make-data data/ --nant 16 --ntime 24
+    python -m ska_sdp_tpu_torch.cli -i data/ --all -o aw.h5   # --mode aw
     python -m ska_sdp_tpu_torch.cli --mode w -i data/ --all -o w.h5
     python -m ska_sdp_tpu_torch.cli --mode predict -i data/ --all \
         --model w.h5 -o pred.h5
@@ -36,16 +37,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--all", action="store_true", help="use every visibility")
     p.add_argument("-i", "--input-dir", default="data",
                    help="input directory (reads vis.h5, wkern.h5 for --mode "
-                        "w and --mode predict without --idg, and akern.h5 "
-                        "for --mode aw and --aterms)")
+                        "w, --mode aw and --mode predict without --idg, and "
+                        "akern.h5 for --mode aw and --aterms)")
     p.add_argument("-o", "--output", default=None,
                    help="output .h5 (/img, or /vis/model for predict)")
-    p.add_argument("--mode", choices=_MODES, default="idg",
-                   help="pipeline; ported: w (bank w-projection), idg "
-                        "(image-domain gridding), aw with --idg (IDG-AW "
-                        "imaging) and predict (model image -> vis: bank "
-                        "w-projection, or IDG / IDG-AW degridding with "
-                        "--idg)")
+    p.add_argument("--mode", choices=_MODES, default="aw",
+                   help="pipeline; ported: aw (fused AW-projection, or "
+                        "IDG-AW with --idg), w (bank w-projection), idg "
+                        "(image-domain gridding) and predict (model image "
+                        "-> vis: bank w-projection, or IDG / IDG-AW "
+                        "degridding with --idg)")
     p.add_argument("--subgrid", type=int, default=64,
                    help="IDG subgrid size (32, 64 or 128)")
     p.add_argument("--fov-pad", type=float, default=None,
@@ -53,10 +54,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--precision", choices=["single", "double"],
                    default="single",
                    help="single (complex64, the CUDA kernels) or double "
-                        "(complex128; --mode w and predict on the CPU)")
+                        "(complex128; --mode w, aw and predict on the CPU)")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (the CUDA kernels) or cpu "
                         "(their plain versions)")
+    # accepted for the reference's command lines and not used: its old
+    # and new AW schedulings give the same image
+    p.add_argument("-old", "--old", action="store_true",
+                   help="old AW gridder scheduling (the same image)")
     p.add_argument("-dphases", "--dump-phases", action="store_true",
                    help="print per-phase wall-clock timings")
     p.add_argument("--theta", type=float, default=0.008)
@@ -78,8 +83,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="use the IDG realization for --mode predict "
                         "(continuous-w degridding) or --mode aw (IDG-AW: "
                         "image-domain A-screens on pair-chunked subgrids); "
-                        "no wkern file needed either way (the only "
-                        "realization of aw ported)")
+                        "no wkern file needed either way")
     p.add_argument("--aterms", action="store_true",
                    help="--mode predict --idg: apply direction-dependent "
                         "antenna terms from akern.h5 (IDG-AW degridding)")
@@ -122,8 +126,6 @@ def main(argv=None) -> int:
         print(f"wrote {paths} ({obs['n']} visibilities)")
         return 0
 
-    if args.mode == "aw" and not args.idg:
-        return _not_ported("--mode aw without --idg")
     if args.mode not in ("w", "idg", "aw", "predict"):
         return _not_ported(f"--mode {args.mode}")
     for flag, on in (("--channels", args.channels not in (None, 1)),
@@ -152,7 +154,7 @@ def main(argv=None) -> int:
     akern_path = os.path.join(args.input_dir, "akern.h5")
     w_bank = args.mode == "w" or (args.mode == "predict" and not args.idg)
     required = [vis_path]
-    if w_bank:
+    if w_bank or (args.mode == "aw" and not args.idg):
         required.append(wkern_path)
     if args.mode == "aw" or args.aterms:
         required.append(akern_path)
@@ -194,8 +196,10 @@ def main(argv=None) -> int:
             result = f"image max: {mx}"
         elif args.mode == "aw":
             phase = "aw_gridding"
-            mx, _ = ds.aw_gridding(akern_path, vis_path, idg=True,
-                                   **common, **idg_opts)
+            opts = idg_opts if args.idg else {}
+            mx, _ = ds.aw_gridding(None if args.idg else wkern_path,
+                                   akern_path, vis_path, idg=args.idg,
+                                   **common, **opts)
             result = f"image max: {mx}"
         else:
             phase = "idg_gridding"

@@ -167,25 +167,38 @@ def write_wkern_file(path: str, centers, cfg: SyntheticConfig) -> None:
             cfg.theta, schema.fmt_float(w)), kern)
 
 
-def write_akern_file(path: str, obs: dict, cfg: SyntheticConfig) -> None:
-    """Near-delta A-kernels per antenna at two times and two frequencies
-    (the reference's file, byte for byte, from the same seed)."""
+def akern_stamps(cfg: SyntheticConfig) -> np.ndarray:
+    """The near-delta A-kernels ``[nant, 2, 2, s, s]`` complex128 (antenna,
+    time, frequency) exactly as :func:`write_akern_file` draws them: a unit
+    centre plus 0.01·(N(0,1) + i·N(0,1)) per pixel from seed ``cfg.seed +
+    1``, antennas outermost.  ``[:, 0, 0]`` is what ``get_akernels`` reads
+    at the first time and frequency."""
     rng = np.random.default_rng(cfg.seed + 1)
-    h5.create_file(path)
     s = cfg.akern_size
+    out = np.zeros((cfg.nant, 2, 2, s, s), np.complex128)
+    out[..., s // 2, s // 2] = 1.0
+    for ant in range(cfg.nant):
+        for it in range(2):
+            for jf in range(2):
+                out[ant, it, jf] += 0.01 * (rng.standard_normal((s, s))
+                                            + 1j * rng.standard_normal((s, s)))
+    return out
+
+
+def write_akern_file(path: str, obs: dict, cfg: SyntheticConfig) -> None:
+    """:func:`akern_stamps` per antenna at two times and two frequencies
+    (the reference's file, byte for byte, from the same seed)."""
+    stamps = akern_stamps(cfg)
+    h5.create_file(path)
     t0 = float(obs["time"][0])
     times = [t0, t0 + 0.02]
     freqs = [float(obs["frequency"][0]), float(obs["frequency"][0]) * 1.1]
     for ant in range(cfg.nant):
-        for tt in times:
-            for ff in freqs:
-                k = np.zeros((s, s), dtype=np.complex128)
-                k[s // 2, s // 2] = 1.0
-                k += 0.01 * (rng.standard_normal((s, s))
-                             + 1j * rng.standard_normal((s, s)))
+        for it, tt in enumerate(times):
+            for jf, ff in enumerate(freqs):
                 h5.write_dataset(path, schema.akern_dataset(
                     cfg.theta, str(ant), schema.fmt_float(tt),
-                    schema.fmt_float(ff)), k)
+                    schema.fmt_float(ff)), stamps[ant, it, jf])
 
 
 def generate_dataset(dirpath: str, cfg: SyntheticConfig = SyntheticConfig()):

@@ -1,9 +1,13 @@
-"""Gridder and degridder dispatch (port of the bank w-projection, IDG and
-IDG-AW parts of ``ska_sdp_tpu/kernels/__init__.py``).
+"""Gridder and degridder dispatch (port of the bank w-projection, fused
+AW, IDG and IDG-AW parts of ``ska_sdp_tpu/kernels/__init__.py``).
 
 The bank w-projection pair ``wproj_gridder`` / ``wproj_degridder`` lives in
 ``kernels/wproj.py``: one CUDA kernel each serves every support and grid
-size, so unlike the reference there is no fallback route to count.
+size, so unlike the reference there is no fallback route to count.  The
+fused AW gridder ``aw_gridder`` (``kernels/aw_fused.py``) rides one CUDA
+kernel for every grid and table size: the reference's VMEM gates, its
+tiled kernel and its slab route (``slab``, ``config.aw_slab``) have no
+counterpart.
 
 Plain IDG rides the streamed run kernels with unit screens and zero pair
 ids: every record keys to (pair 0, uv tile), runs are the occupied tiles
@@ -23,10 +27,12 @@ import torch
 
 from ..ops.idg_aw import auto_fit_margin
 from .idg_aw_records import STREAM_SUBGRIDS
+from .aw_fused import aw_gridder
 from .idg_aw_stream import idg_aw_degridder_stream, idg_aw_gridder_stream
 from .wproj import wproj_degridder, wproj_gridder
 
 __all__ = [
+    "aw_gridder",
     "drop_counters",
     "idg_aw_degridder",
     "idg_aw_gridder",

@@ -1,6 +1,7 @@
-"""Bank w-projection, IDG and IDG-AW imaging and prediction pipelines (port
-of the ``--mode w``, ``--mode idg``, ``--mode aw --idg`` and ``--mode
-predict [--idg [--aterms]]`` paths of ``ska_sdp_tpu/models/dataset.py``).
+"""Bank w-projection, fused AW, IDG and IDG-AW imaging and prediction
+pipelines (port of the ``--mode w``, ``--mode aw [--idg]``, ``--mode idg``
+and ``--mode predict [--idg [--aterms]]`` paths of
+``ska_sdp_tpu/models/dataset.py``).
 
 Each path has an in-memory entry that runs on a given device and a file
 entry that reads HDF5, calls it and writes HDF5:
@@ -9,6 +10,7 @@ entry that reads HDF5, calls it and writes HDF5:
   path                        in memory             file
   ==========================  ====================  ==================
   w-projection imaging        ``w_image``           ``w_gridding``
+  fused AW imaging            ``aw_image``          ``aw_gridding``
   IDG imaging                 ``idg_image``         ``idg_gridding``
   IDG-AW imaging              ``aw_idg_image``      ``aw_gridding``
   w-projection predict        ``w_predict_vis``     ``w_predict``
@@ -17,15 +19,16 @@ entry that reads HDF5, calls it and writes HDF5:
   ==========================  ====================  ==================
 
 The imaging programs are the reference's ``_wproj_pipeline``,
-``_idg_pipeline`` and ``_aw_idg_pipeline``:
+``_aw_pipeline``, ``_idg_pipeline`` and ``_aw_idg_pipeline``:
 
     uvw → wavelengths → uniform weights → v ≥ 0 mirroring → gridder
         → Hermitian completion → centred inverse FFT
         [IDG: → ÷ fine taper → padded-FOV crop] → image max
 
-where the bank gridder picks each record's w-plane by ``find_closest`` on
-the mirrored w.  The predict programs (``_predict_pipeline``,
-``_idg_predict_pipeline``, ``_aw_idg_predict_pipeline``) walk back:
+where the bank and fused AW gridders pick each record's w-plane by
+``find_closest`` on the mirrored w.  The predict programs
+(``_predict_pipeline``, ``_idg_predict_pipeline``,
+``_aw_idg_predict_pipeline``) walk back:
 
     model [IDG: → padded-FOV embedding → ÷ fine taper] → centred FFT
         → degridder at the records' unmirrored uvw in wavelengths
@@ -53,6 +56,7 @@ from ..ops.idg import (fov_pad_finish, fov_pad_geometry, fov_pad_start,
 from ..ops.idg_aw import aw_screens_host
 from ..ops.search import find_closest
 from ..types import precision as _precision
+from .imaging import aw_imaging
 
 
 class VisData(NamedTuple):
@@ -381,31 +385,38 @@ def aw_idg_image(vis_data: VisData, akerns, *, theta: float = 0.008,
     return IDGImage(img, float(mx), nd)
 
 
-def aw_gridding(afile: str, datfile: str, n: Optional[int] = None,
-                outfile: Optional[str] = None,
-                config: ImagingConfig = ImagingConfig(), idg: bool = False,
-                fov_pad: Optional[float] = None, subgrid: int = 64,
-                device_phases: bool = False, device="cuda"):
-    """AW imaging run from HDF5 files.  Only the IDG-AW route
-    (``idg=True``: screens from the akern file at the data's first time
-    and its frequency, no w-kernel file, so the reference's leading
-    ``wfile`` argument is dropped) is ported; the fused AW route and
-    ``device_phases`` raise ``NotImplementedError``.  Returns
-    ``(image max, image as numpy)`` and optionally writes ``/img``."""
-    if not idg:
-        raise NotImplementedError(
-            "fused AW-projection imaging (aw_gridding idg=False) is not "
-            "ported yet; use idg=True (IDG-AW)")
+def aw_gridding(wfile: Optional[str], afile: str, datfile: str,
+                n: Optional[int] = None, outfile: Optional[str] = None,
+                config: ImagingConfig = ImagingConfig(),
+                idg: bool = False, fov_pad: Optional[float] = None,
+                subgrid: int = 64, device_phases: bool = False,
+                device="cuda"):
+    """AW imaging run from HDF5 files, the reference's argument order.
+    ``idg=False`` is fused AW-projection (:func:`aw_image`: the ``wfile``
+    bank, A-kernels from ``afile`` at the data's first time and its
+    frequency).  ``idg=True`` is IDG-AW
+    (:func:`aw_idg_image`, screens from the same A-kernels; ``wfile`` may
+    be None).
+    ``device_phases`` raises ``NotImplementedError``.  Returns ``(image
+    max, image as numpy)`` and optionally writes ``/img``."""
     if device_phases:
         raise NotImplementedError(
             "device_phases (staged device timings) is not ported yet")
     data = load_vis_data(datfile)
     akerns = get_akernels(afile, config.grid.theta, float(data.time[0]),
                           data.frequency)
-    res = aw_idg_image(data, akerns, theta=config.grid.theta,
-                       lam=config.grid.lam, n=n, subgrid=subgrid,
-                       fov_pad=fov_pad, precision=config.precision_name,
-                       device=device)
+    if idg:
+        res = aw_idg_image(data, akerns, theta=config.grid.theta,
+                           lam=config.grid.lam, n=n, subgrid=subgrid,
+                           fov_pad=fov_pad, precision=config.precision_name,
+                           device=device)
+    else:
+        if wfile is None:
+            raise ValueError("fused AW imaging needs a w-kernel file")
+        wkerns, wbins = get_wkernels(wfile, config.grid.theta)
+        res = aw_image(data, wkerns, wbins, akerns, theta=config.grid.theta,
+                       lam=config.grid.lam, n=n,
+                       precision=config.precision_name, device=device)
     img = res.image.cpu().numpy()
     if outfile is not None:
         h5.create_file(outfile)
@@ -599,8 +610,8 @@ def get_wkernels(wfile: str, theta: float):
     return bank, np.array([v for v, _ in wbins], dtype=np.float64)
 
 
-def _wproj_chunk(n: int) -> int:
-    """The reference's visibility chunk of the plain scatter and gather."""
+def _vis_chunk(n: int) -> int:
+    """The reference's visibility chunk of the plain scatters and gather."""
     return min(8192, max(256, n))
 
 
@@ -638,7 +649,7 @@ def w_image(vis_data: VisData, wkerns, wbins, *, theta: float = 0.008,
     bank, wb = _bank(wkerns, wbins, prec, device)
     img, mx = _wproj_pipeline(torch.conj(bank).resolve_conj(), wb, uvw, f,
                               vis, theta=theta, lam=lam,
-                              chunk=_wproj_chunk(vis.shape[0]))
+                              chunk=_vis_chunk(vis.shape[0]))
     return WImage(img, float(mx))
 
 
@@ -658,6 +669,49 @@ def w_gridding(wfile: str, datfile: str, n: Optional[int] = None,
         h5.create_file(outfile)
         h5.write_dataset(outfile, schema.IMG_DATASET, img.astype(np.float64))
     return res.image_max, img
+
+
+# ---------------------------------------------------------------------------
+# Fused AW-projection imaging
+# ---------------------------------------------------------------------------
+
+
+def _aw_pipeline(wkerns, wbins, akerns, uvw, a1, a2, f, vis, *,
+                 theta: float, lam: int, chunk: int):
+    """The fused AW imaging program on ``uvw``'s device: uniform weights
+    on the unmirrored uvw in wavelengths, v ≥ 0 mirroring, the AW gridder
+    (each record's w-plane closest to its mirrored w, A-kernels of its
+    antennas), Hermitian completion and the centred inverse FFT.  Returns
+    ``(img, img.max())`` as tensors."""
+    uvw0 = uvw_lambda(f, uvw)
+    wt = doweight(theta, lam, uvw0, torch.ones_like(vis))
+    uvw1, vis1 = mirror_uvw(uvw0, vis)
+    guv = aw_imaging(theta, lam, wkerns, wbins, akerns, uvw1,
+                     (a1, a2), wt * vis1, chunk=chunk)
+    img = ifft_centered(make_grid_hermitian(guv)).real
+    return img, torch.max(img)
+
+
+def aw_image(vis_data: VisData, wkerns, wbins, akerns, *,
+             theta: float = 0.008, lam: int = 300000,
+             n: Optional[int] = None, precision: str = "single",
+             device="cuda") -> WImage:
+    """Fused AW-projection dirty image of in-memory visibilities through
+    the unconjugated bank ``wkerns`` ``[nw, qpx, qpx, s, s]`` with plane
+    centres ``wbins`` ``[nw]`` and the A-kernels ``akerns`` ``[nant, s,
+    s]`` (numpy or tensors) on ``device`` (``"cuda"`` runs the CUDA fused
+    gridder, ``"cpu"`` the plain scatter).  ``n`` caps the record count."""
+    prec = _precision(precision)
+    uvw, f, vis = idg_inputs(vis_data, n=n, precision=precision,
+                             device=device)
+    n = vis.shape[0]
+    bank, wb = _bank(wkerns, wbins, prec, device)
+    ak = torch.as_tensor(akerns, dtype=prec.complex, device=device)
+    a1, a2 = (torch.as_tensor(a.astype(np.int32), device=device)
+              for a in _ant_ids(vis_data, n))
+    img, mx = _aw_pipeline(bank, wb, ak, uvw, a1, a2, f, vis,
+                           theta=theta, lam=lam, chunk=_vis_chunk(n))
+    return WImage(img, float(mx))
 
 
 def _predict_pipeline(wkerns, wbins, img, uvw, f, *, theta: float, lam: int,
@@ -683,7 +737,7 @@ def w_predict_vis(vis_data: VisData, wkerns, wbins, model, *,
     uvw, f = _uvw_freq(vis_data, n, prec, device)
     bank, wb = _bank(wkerns, wbins, prec, device)
     vis = _predict_pipeline(bank, wb, img, uvw, f, theta=theta, lam=lam,
-                            chunk=_wproj_chunk(uvw.shape[0]))
+                            chunk=_vis_chunk(uvw.shape[0]))
     return _prediction(vis, 0, "wproj_degridder")
 
 

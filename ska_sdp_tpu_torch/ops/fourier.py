@@ -39,3 +39,11 @@ def extract_mid(a: torch.Tensor, n: int) -> torch.Tensor:
     cy = a.shape[-1] // 2
     s = n // 2
     return a[..., cx - s:cx - s + n, cy - s:cy - s + n]
+
+
+def next_pow2(x: int) -> int:
+    """Smallest power of two ≥ ``x``."""
+    p = 1
+    while p < x:
+        p *= 2
+    return p

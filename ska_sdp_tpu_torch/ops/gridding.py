@@ -1,6 +1,7 @@
-"""Bank w-projection scatter and its adjoint gather in plain PyTorch (port
-of ``convgrid_wproj`` and ``degrid_wproj`` of ``ska_sdp_tpu/ops/gridding.py``,
-the reference's ``convgrid2`` and its adjoint).
+"""Bank w-projection scatter, its adjoint gather and the AW-projection
+scatter in plain PyTorch (port of ``convgrid_wproj``, ``degrid_wproj`` and
+``convgrid_aw`` of ``ska_sdp_tpu/ops/gridding.py``, the reference's
+``convgrid2``, its adjoint, and ``convgrid4``).
 
 Each visibility's tap plane ``K_b = bank[wbin_b, yf_b, xf_b]`` (``[gh, gw]``)
 sits with its top-left corner at ``(y_b − gh//2, x_b − gw//2)``, where
@@ -14,13 +15,17 @@ gather (the reference's ``fixoutofbounds``).  Visibilities go in chunks of
 ``chunk``, so the temporaries stay ``O(chunk · gh · gw)``.  These are the
 plain versions of the CUDA kernels ``csrc/wproj_grid.cu`` and
 ``csrc/wproj_degrid.cu``: the CPU path and the yardstick the kernels are
-checked against.
+checked against.  ``convgrid_aw`` builds each visibility's AW kernel
+from the A-kernel and w-tap spectra (``ops/convolution.py``) and places
+it the same way; it is the CPU route of ``kernels.aw_gridder``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .convolution import (akernel_spectra, make_aw_kernels_batched,
+                          wkernel_tap_spectra)
 from .coords import frac_coords
 
 DEFAULT_CHUNK = 8192
@@ -89,4 +94,32 @@ def degrid_wproj(gcf_bank: torch.Tensor, grid: torch.Tensor,
         win = torch.where(inb, flat[idx], 0)
         taps = _taps(gcf_bank, wbin[sl], yf[sl], xf[sl])
         out[sl] = torch.sum(win * taps.conj(), dim=(-2, -1))
+    return out
+
+
+def convgrid_aw(wkerns: torch.Tensor, akerns: torch.Tensor,
+                guv: torch.Tensor, p: torch.Tensor, wbin: torch.Tensor,
+                a1: torch.Tensor, a2: torch.Tensor, vis: torch.Tensor,
+                chunk: int = DEFAULT_CHUNK) -> torch.Tensor:
+    """AW-projection scatter onto a copy of ``guv`` ``[H, W]``: visibility
+    b adds ``vis_b · conj(A[a1_b] ⊛ A[a2_b] ⊛ W[wbin_b, yf_b, xf_b])``
+    with the unconjugated w-kernel bank ``wkerns`` ``[nw, qpx, qpx, s, s]``
+    and the A-kernels ``akerns`` ``[nant, s, s]``, each kernel built from
+    the spectra per visibility in chunks of ``chunk``."""
+    nw, qpx, _, gh, gw = wkerns.shape
+    H, W = guv.shape
+    x, xf, y, yf = frac_coords((H, W), qpx, p)
+    y0, x0 = y - gh // 2, x - gw // 2
+    a_spec = akernel_spectra(akerns)
+    w_spec = wkernel_tap_spectra(wkerns)
+    build = make_aw_kernels_batched(gh)
+    out = guv.clone()
+    flat = torch.view_as_real(out).view(-1, 2)
+    for c0 in range(0, vis.shape[0], chunk):
+        sl = slice(c0, c0 + chunk)
+        idx, inb = _patch_cells(y0[sl], x0[sl], gh, gw, H, W)
+        awk = build(a_spec, w_spec, a1[sl], a2[sl], wbin[sl], yf[sl], xf[sl])
+        patch = torch.where(inb, vis[sl, None, None] * awk, 0).to(out.dtype)
+        flat.index_add_(0, idx.reshape(-1),
+                        torch.view_as_real(patch).reshape(-1, 2))
     return out

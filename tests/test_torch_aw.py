@@ -26,6 +26,7 @@ from ska_sdp_tpu.io import schema as j_schema  # noqa: E402
 from ska_sdp_tpu.io import synthetic as j_synth  # noqa: E402
 from ska_sdp_tpu.models import dataset as j_ds  # noqa: E402
 from ska_sdp_tpu_torch import cli  # noqa: E402
+from ska_sdp_tpu_torch.config import GridParams, ImagingConfig  # noqa: E402
 from ska_sdp_tpu_torch.io import h5, schema  # noqa: E402
 from ska_sdp_tpu_torch.io import synthetic  # noqa: E402
 from ska_sdp_tpu_torch.models import dataset as ds  # noqa: E402
@@ -153,16 +154,26 @@ class TestAWPipeline:
         c_got, c_want = _crop(got.numpy()).max(), _crop(want).max()
         assert abs(c_got - c_want) < 1e-4 * abs(c_want)
 
-    def test_entry_and_unported_routes(self, observation, tmp_path):
+    def test_entry_and_unported_routes(self, observation, data_dir):
         vd, ak = observation
         res = ds.aw_idg_image(vd, ak, theta=THETA, lam=LAM, device="cpu")
         assert res.n_dropped == 0
         assert res.image.shape == (N, N)
         assert np.isfinite(res.image.numpy()).all()
-        with pytest.raises(NotImplementedError, match="fused"):
-            ds.aw_gridding("a.h5", "v.h5", idg=False, device="cpu")
+        # the file entry takes the reference's argument order; the fused
+        # route (idg=False) reads the bank, the IDG-AW route needs none
+        paths = [os.path.join(data_dir, f)
+                 for f in ("wkern.h5", "akern.h5", "vis.h5")]
+        cfg = ImagingConfig(grid=GridParams(theta=THETA, lam=LAM))
+        mx_f, img_f = ds.aw_gridding(*paths, config=cfg, device="cpu")
+        mx_i, img_i = ds.aw_gridding(None, *paths[1:], config=cfg, idg=True,
+                                     device="cpu")
+        for mx, img in ((mx_f, img_f), (mx_i, img_i)):
+            assert img.shape == (N, N) and np.isfinite(img).all()
+            assert mx == pytest.approx(float(img.max()))
+        assert not np.array_equal(img_f, img_i)
         with pytest.raises(NotImplementedError, match="device_phases"):
-            ds.aw_gridding("a.h5", "v.h5", idg=True,
+            ds.aw_gridding(None, "a.h5", "v.h5", idg=True,
                            device_phases=True, device="cpu")
 
 

@@ -133,7 +133,8 @@ class TestCLI:
         assert got.dtype == np.float64
         assert _rel(got, want) < 1e-4
 
-    @pytest.mark.parametrize("argv", [["--mode", "aw"], ["--channels", "4"],
+    @pytest.mark.parametrize("argv", [["--mode", "conv"],
+                                      ["--channels", "4"],
                                       ["--distributed"],
                                       ["--device-phases"]])
     def test_unported_surfaces_exit_cleanly(self, argv, capsys):
