@@ -2,7 +2,7 @@
 """Chip smoke test of ska_sdp_tpu_torch: the ported imaging and prediction
 paths end to end on one NVIDIA GPU, through the hand-written CUDA kernels
 (the streamed IDG gridder and degridder, the bank w-projection scatter and
-gather, the fused AW gridder).
+gather, the fused AW gridder, the fixed-tile IDG gridder and degridder).
 
     python3 chip_smoke.py
 
@@ -12,8 +12,9 @@ result line):
 1. device: a CUDA card is required (no CPU fallback); versions and the
    card's name and power limit as ``nvidia-smi`` reports them;
 2. build: compile ``ska_sdp_tpu_torch/csrc/idg_grid.cu``,
-   ``csrc/idg_degrid.cu``, ``csrc/wproj_grid.cu``, ``csrc/wproj_degrid.cu``
-   and ``csrc/aw_grid.cu`` with nvcc for sm_90a, one nvcc each, all
+   ``csrc/idg_degrid.cu``, ``csrc/wproj_grid.cu``, ``csrc/wproj_degrid.cu``,
+   ``csrc/aw_grid.cu``, ``csrc/idg_tile_grid.cu`` and
+   ``csrc/idg_tile_degrid.cu`` with nvcc for sm_90a, one nvcc each, all
    started together; print the gridder's build time and ptxas resource use;
 3. gridder parity on the card against the plain PyTorch version on the
    same inputs: a mid-size IDG-AW case (512² grid, S=64, 16 antennas of
@@ -100,7 +101,28 @@ result line):
 18. fused AW times (CUDA events, median of 7 after a warm-up): the kernel
     and ``aw_fused_plain`` at shapes (b) and (d), the tables (pair remap,
     pair table, w-tap spectra) at 64 and 512 stations, and ``aw_image`` end
-    to end.
+    to end;
+19. build: the fixed-tile IDG kernels' build times and ptxas resource use;
+20. fixed-tile parity on the card, each kernel against its plain version
+    on the same records: 512² (θ=0.008) at S=16 (support 7), 32, 48 and
+    128 (support 15), 200,000 random records with |p| ≤ 0.53 and |w| ≤
+    100,000 λ and a random grid, and the main path's 1,046,528 records at
+    S=32 (phase 4's weighted mirrored visibilities; phase 8's model grid);
+    grid and visibility rel-L2 ≤ 5e-5, off-grid records predicting 0;
+21. the S=32 main paths on phase 4's observation, each with the launch
+    counts reset just before: ``idg_image(subgrid=32)`` (at least one
+    fixed-tile launch and no streamed one, phase 4's image checks, rel-L2
+    ≤ 1e-4 over the central 75% against the pipeline on the plain
+    fixed-tile gridder; printed without a bound, against phase 4's S=64
+    image), ``idg_predict_vis(subgrid=32)`` of phase 8's model (rel-L2 ≤
+    5e-5 against the plain fixed-tile degridder; printed beside the
+    reference's S=32 bound of 3e-4, against phase 8's direct DFT), and the
+    stage-timed ``_idg_staged`` at S=64 in memory (image within 1e-4 of
+    phase 4's over the central 75%, at least one fixed-tile launch, the
+    four stage times);
+22. fixed-tile times (CUDA events, median of 7 after a warm-up) at S=32
+    on the main path: each kernel and its plain version, the preps, the
+    degrid prologue, and ``idg_image`` and ``idg_predict_vis`` end to end.
 
 The line before last is the ``nvidia-smi`` name and power limit, the one
 before it a JSON summary of the kernels (``replaces`` lists each TPU
@@ -177,6 +199,17 @@ def bound(ops: float, nbytes: float):
     t_bytes = nbytes / HBM_BPS * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes")
+
+
+def sandwich_flop(S: int):
+    """``(least, dense, fft)`` f32 operations of one S×S subgrid sandwich
+    F′·a·F′ᵀ, F′ a centred S-point DFT with the taper folded in: dense it
+    is two complex S³ products, 16·S³; as a taper multiply and a 2-D
+    radix-2 FFT (2S transforms of 5·S·log2(S)) it is
+    10·S²·log2(S) + 6·S².  A bound counts the least."""
+    dense = 16 * S ** 3
+    fft = 10 * S * S * math.log2(S) + 6 * S * S
+    return min(dense, fft), dense, fft
 
 
 def nbytes(*tensors) -> int:
@@ -336,7 +369,7 @@ def main() -> int:
         return time.perf_counter() - t
 
     kernels_cu = ("idg_grid", "idg_degrid", "wproj_grid", "wproj_degrid",
-                  "aw_grid")
+                  "aw_grid", "idg_tile_grid", "idg_tile_degrid")
     pool = ThreadPoolExecutor(max_workers=len(kernels_cu))
     builds = {k: pool.submit(build, k) for k in kernels_cu}
     pool.shutdown(wait=False)
@@ -487,13 +520,26 @@ def main() -> int:
           f"{builds['aw_grid'].result():.1f} s (started with idg_grid.cu)")
     print_ptxas(_build.build_log, "aw_grid")
     aw = aw_phases(torch, dev, card, vd, obs, img_w)
+    for k in ("idg_tile_grid", "idg_tile_degrid"):
+        print(f"build: {k}.cu for sm_90a in {builds[k].result():.1f} s "
+              "(started with idg_grid.cu)")
+        print_ptxas(_build.build_log, k)
+    tile = tile_phases(torch, dev, card, vd, obs, img, model, truth)
 
     S = SUBGRID
-    grid_ops = 8 * S * S * n_vis + 16 * S ** 3 * n_runs
-    # inputs read once (records, run tables, screens), the padded grid
-    # written once
-    bound_ms, bound_by = bound(grid_ops, nbytes(*recs[:7], unit)
-                               + (n + 2 * S) ** 2 * 8)
+    # per run the pair screen (A1·A2, then its product with a: 12·S²) and
+    # the sandwich; inputs read once (records, run tables, screens), the
+    # padded grid written once
+    per_run = [c + 12 * S * S for c in sandwich_flop(S)]
+    grid_ops = 8 * S * S * n_vis + per_run[0] * n_runs
+    io = nbytes(*recs[:7], unit) + (n + 2 * S) ** 2 * 8
+    bound_ms, bound_by = bound(grid_ops, io)
+    print(f"idg gridder bound at S={S}: {n_runs} runs x {per_run[0]:.0f} "
+          f"flop (dense sandwich {per_run[1]:.0f}, FFT sandwich "
+          f"{per_run[2]:.0f}) + 8·S² x {n_vis} records = "
+          f"{grid_ops / 1e9:.2f} GFLOP -> {bound_ms:.3f} ms ({bound_by}; "
+          f"dense count "
+          f"{bound(8 * S * S * n_vis + per_run[1] * n_runs, io)[0]:.3f} ms)")
     print(json.dumps({"kernels": [{
         "name": stream.GRID_KERNEL,
         "route": "cuda",
@@ -514,7 +560,7 @@ def main() -> int:
         "replaces": "ska_sdp_tpu/kernels/idg_aw_stream_pallas.py:475, "
                     "ska_sdp_tpu/kernels/idg_aw_stream_pallas.py:1014",
         **degrid,
-    }, *wproj, aw]}))
+    }, *wproj, aw, *tile]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
@@ -769,11 +815,18 @@ def degrid_phases(torch, dev, card, mid, vd, obs, grid_full):
     S = SUBGRID
     n_runs = int(((drecs_full[1][1:] > drecs_full[1][:-1])
                   & (drecs_full[4] < PAIR_SHIFT)).sum())
-    ops = 8 * S * S * n_vis + 16 * S ** 3 * n_runs
-    # records, run tables, order, screens and the padded grid read once;
-    # the visibilities written once
-    bound_ms, bound_by = bound(ops, nbytes(*drecs_full[:7], unit)
-                               + (n + 2 * S) ** 2 * 8 + n_vis * 8)
+    # per run the adjoint sandwich and the pair screen (12·S², as the
+    # gridder's); records, run tables, order, screens and the padded grid
+    # read once, the visibilities written once
+    per_run = [c + 12 * S * S for c in sandwich_flop(S)]
+    ops = 8 * S * S * n_vis + per_run[0] * n_runs
+    io = nbytes(*drecs_full[:7], unit) + (n + 2 * S) ** 2 * 8 + n_vis * 8
+    bound_ms, bound_by = bound(ops, io)
+    print(f"idg degridder bound at S={S}: {n_runs} runs x {per_run[0]:.0f} "
+          f"flop (dense {per_run[1]:.0f}) + 8·S² x {n_vis} records = "
+          f"{ops / 1e9:.2f} GFLOP -> {bound_ms:.3f} ms ({bound_by}; dense "
+          f"count {bound(8 * S * S * n_vis + per_run[1] * n_runs, io)[0]:.3f}"
+          f" ms)")
     return {"launches": launches, "max_abs_err": max_abs, "ms": ms_kernel,
             "plain_ms": ms_plain, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None}, model, truth
@@ -1251,6 +1304,264 @@ def aw_phases(torch, dev, card, vd, obs, img_w):
         "ms": ms["kernel (CUDA), main path"],
         "plain_ms": ms["plain (PyTorch), main path"],
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def tile_phases(torch, dev, card, vd, obs, img64, model, truth):
+    """Phases 20-22.  ``vd``/``obs`` are the main path's observation,
+    ``img64`` phase 4's S=64 ``idg_image``, ``model`` and ``truth`` phase
+    8's snapped-source model and its float64 direct-DFT visibilities.
+    Returns the two fixed-tile kernels' entries of the ``kernels`` line."""
+    from ska_sdp_tpu_torch.kernels import idg_aw_stream as stream
+    from ska_sdp_tpu_torch.kernels import idg_tile
+    from ska_sdp_tpu_torch.models import dataset as ds
+    from ska_sdp_tpu_torch.utils.timing import PhaseTimer
+
+    S32 = 32
+    kw32 = dict(subgrid=S32, taper_beta=BETA)
+
+    def grid_both(shape, p, w, vis, S, support, theta):
+        recs, starts = idg_tile.idg_bin_records(
+            shape, p, w, vis.real, vis.imag, subgrid=S, support=support)
+        geo = idg_tile.tile_geometry(shape, S)
+        kw = dict(theta=theta, subgrid=S, taper_beta=BETA)
+        k = idg_tile.idg_grid_from_records(recs, starts, shape, **kw)
+        pl = idg_tile.grid_from_records_plain(
+            recs, starts, grid_shape=shape, **kw)[
+                geo.T:geo.T + shape[0], geo.T:geo.T + shape[1]]
+        torch.cuda.synchronize()
+        return recs, starts, k, pl
+
+    def degrid_both(p, w, grid, S, support, theta):
+        shape = tuple(grid.shape)
+        recs, starts, order, valid = idg_tile.prep_with_order(
+            shape, p, w, subgrid=S, support=support)
+        k = idg_tile.idg_degrid_from_records(recs, starts, order, grid,
+                                             theta=theta, subgrid=S,
+                                             taper_beta=BETA)
+        a_sub, occ = idg_tile.tile_images(grid, starts, subgrid=S,
+                                          taper_beta=BETA)
+        pl = idg_tile.degrid_from_records_plain(
+            recs, starts, order, occ, a_sub, grid_shape=shape, theta=theta,
+            subgrid=S)
+        torch.cuda.synchronize()
+        return (recs, starts, order, valid, a_sub, occ), k, pl
+
+    def parity(label, shape, S, support, theta, g_in, d_in):
+        recs, starts, gk, gp_t = grid_both(shape, *g_in, S, support, theta)
+        drecs, vk, vp = degrid_both(*d_in, S, support, theta)
+        gk, gp, vk, vp = (x.cpu().numpy() for x in (gk, gp_t, vk, vp))
+        err_g, err_v = rel_l2(gk, gp), rel_l2(vk, vp)
+        valid = drecs[3].cpu().numpy()
+        n_occ = int((starts[1:] > starts[:-1]).sum())
+        print(f"tile parity {label}: grid rel-L2 {err_g:.3e}, vis rel-L2 "
+              f"{err_v:.3e} (bound {KERNEL_TOL}); {int(valid.sum())} of "
+              f"{valid.shape[0]} records on the grid, {n_occ} of "
+              f"{starts.shape[0] - 1} subgrids occupied; nonzero "
+              f"predictions kernel {int((vk != 0).sum())} plain "
+              f"{int((vp != 0).sum())}")
+        if not (err_g <= KERNEL_TOL and err_v <= KERNEL_TOL):
+            raise AssertionError(f"tile parity {label} failed: {err_g}, "
+                                 f"{err_v}")
+        if np.any(vk[~valid] != 0) or np.any(vp[~valid] != 0):
+            raise AssertionError(f"tile parity {label}: off-grid records "
+                                 "predicted nonzero")
+        return dict(recs=recs, starts=starts, drecs=drecs, gp=gp_t, vp=vp,
+                    max_abs_g=float(np.abs(gk - gp).max()),
+                    max_abs_v=float(np.abs(vk - vp).max()), n_occ=n_occ)
+
+    # ---- 20a. 512² at S = 16, 32, 48, 128, records beyond the edges ------
+    mid_lam = 64000                                     # 512² at θ=0.008
+    rng = np.random.default_rng(50)
+    n_mid = 200_000
+    p_mid = rng.uniform(-0.53, 0.53, (n_mid, 3)).astype(np.float32)
+    w_mid = rng.uniform(-1e5, 1e5, n_mid).astype(np.float32)
+    vis_mid = (rng.standard_normal(n_mid)
+               + 1j * rng.standard_normal(n_mid)).astype(np.complex64)
+    g_mid = (rng.standard_normal((512, 512))
+             + 1j * rng.standard_normal((512, 512))).astype(np.complex64)
+    pm, wm, vm, gm = (torch.as_tensor(a, device=dev)
+                      for a in (p_mid, w_mid, vis_mid, g_mid))
+    for S, support in ((16, 7), (32, 15), (48, 15), (128, 15)):
+        parity(f"mid (512², S={S}, support {support}, {n_mid} records, "
+               "|p| ≤ 0.53)", (512, 512), S, support, THETA,
+               (pm, wm, vm), (pm, wm, gm))
+    del pm, wm, vm, gm
+
+    # ---- 20b. the main path's records at S=32 ------------------------------
+    n_vis = vd.vis.shape[0]
+    uvw, f, vis = ds.idg_inputs(vd, device=dev)
+    g = ds.idg_grid_inputs(uvw, f, vis, theta=THETA, lam=LAM)
+    model_t = torch.as_tensor(model, device=dev)
+    d = ds.degrid_inputs(model_t, uvw, f, theta=THETA, lam=LAM, **kw32)
+    shape = g.grid_shape
+    main = parity(f"main ({shape[0]}², S=32, support 15, {n_vis} records; "
+                  "phase 8's model grid)", shape, S32, SUPPORT, g.theta,
+                  (g.p, g.w, g.vis), (d.p, d.w, d.grid))
+
+    # ---- 21a. idg_image at S=32 --------------------------------------------
+    stream.reset_launch_count()
+    idg_tile.reset_launch_count()
+    res = ds.idg_image(vd, theta=THETA, lam=LAM, device=dev, **kw32)
+    torch.cuda.synchronize()
+    launches_g = idg_tile.launch_count(idg_tile.GRID_KERNEL)
+    launches_stream = stream.launch_count(stream.GRID_KERNEL)
+    img = res.image.cpu().numpy()
+    n = img.shape[0]
+    print(f"S=32 main path: idg_image {n}² from {n_vis} vis, image max "
+          f"{res.image_max:.6g}, n_dropped {res.n_dropped}, fixed-tile "
+          f"launches {launches_g}, streamed launches {launches_stream}")
+    if not np.isfinite(img).all():
+        raise AssertionError("S=32 image has non-finite pixels")
+    if res.n_dropped != 0:
+        raise AssertionError(f"S=32 imaging dropped {res.n_dropped}")
+    if launches_g < 1 or launches_stream != 0:
+        raise AssertionError("idg_image(subgrid=32) did not run on the "
+                             "fixed-tile kernel alone")
+    iy, ix = np.unravel_index(np.argmax(crop75(img)), crop75(img).shape)
+    iy, ix = iy + n // 8, ix + n // 8
+    srcs = obs["sources"]
+    dists = [abs(iy - (n / 2 + m * LAM)) + abs(ix - (n / 2 + l * LAM))
+             for l, m, _ in srcs]
+    print(f"  peak of the central 75% at ({iy}, {ix}), L1 distance to "
+          f"nearest source {min(dists):.2f} px (bound 3)")
+    if min(dists) > 3.0:
+        raise AssertionError("S=32 image peak is not at a simulated source")
+    for l, m, _ in srcs:
+        cy, cx = int(round(n / 2 + m * LAM)), int(round(n / 2 + l * LAM))
+        win = img[max(0, cy - 2):cy + 3, max(0, cx - 2):cx + 3]
+        if not win.max() > 0.25 * crop75(img).max():
+            raise AssertionError(f"source at ({l}, {m}) not recovered")
+    print("  every source's 5×5 window above 0.25 of the central max")
+    img_plain = ds._idg_finish(main["gp"], g.n, shape[0], g.crop_lo, S32,
+                               BETA).cpu().numpy()
+    err_img = rel_l2(crop75(img), crop75(img_plain))
+    print(f"  image vs plain fixed-tile pipeline: rel-L2 {err_img:.3e} over "
+          f"the central 75% (bound {IMAGE_TOL}); vs phase 4's S=64 image "
+          f"(no bound): {rel_l2(crop75(img), crop75(img64)):.3e}")
+    if not err_img <= IMAGE_TOL:
+        raise AssertionError(f"S=32 image parity failed: {err_img}")
+
+    # ---- 21b. idg_predict_vis at S=32 --------------------------------------
+    stream.reset_launch_count()
+    idg_tile.reset_launch_count()
+    pred = ds.idg_predict_vis(vd, model, theta=THETA, lam=LAM, device=dev,
+                              **kw32)
+    torch.cuda.synchronize()
+    launches_d = idg_tile.launch_count(idg_tile.DEGRID_KERNEL)
+    launches_stream = stream.launch_count(stream.DEGRID_KERNEL)
+    err_pred = rel_l2(pred.vis.cpu().numpy(), main["vp"])
+    got = pred.vis.to(torch.complex128)
+    err_truth = float(torch.linalg.norm(got - truth)
+                      / torch.linalg.norm(truth))
+    print(f"S=32 predict main path: idg_predict_vis of phase 8's model to "
+          f"{n_vis} vis, peak |vis| {pred.peak:.6g}, n_dropped "
+          f"{pred.n_dropped}, fixed-tile launches {launches_d}, streamed "
+          f"launches {launches_stream}; vs plain fixed-tile degridder "
+          f"rel-L2 {err_pred:.3e} (bound {KERNEL_TOL}); vs float64 direct "
+          f"DFT {err_truth:.3e} (the reference's S=32 bound 3e-4)")
+    if not torch.isfinite(pred.vis).all():
+        raise AssertionError("S=32 prediction has non-finite values")
+    if pred.n_dropped != 0:
+        raise AssertionError(f"S=32 predict dropped {pred.n_dropped}")
+    if launches_d < 1 or launches_stream != 0:
+        raise AssertionError("idg_predict_vis(subgrid=32) did not run on "
+                             "the fixed-tile kernel alone")
+    if not err_pred <= KERNEL_TOL:
+        raise AssertionError(f"S=32 predict parity failed: {err_pred}")
+
+    # ---- 21c. the stage-timed pipeline at S=64 -----------------------------
+    timer = PhaseTimer()
+    idg_tile.reset_launch_count()
+    img_st, _ = ds._idg_staged(uvw, f, vis, theta=THETA, lam=LAM,
+                               subgrid=SUBGRID, taper_beta=BETA, timer=timer)
+    torch.cuda.synchronize()
+    launches_st = idg_tile.launch_count(idg_tile.GRID_KERNEL)
+    err_st = rel_l2(crop75(img_st.cpu().numpy()), crop75(img64))
+    stages = ", ".join(f"{k[7:]} {v * 1e3:.3f} ms"
+                       for k, v in timer.times.items()
+                       if k.startswith("device/") and "+compile" not in k)
+    print(f"staged S=64 (_idg_staged, in memory): vs phase 4's idg_image "
+          f"rel-L2 {err_st:.3e} over the central 75% (bound {IMAGE_TOL}), "
+          f"fixed-tile launches {launches_st} (warm-up + timed); stages: "
+          f"{stages} [{card}]")
+    if launches_st < 1:
+        raise AssertionError("_idg_staged did not launch the fixed-tile "
+                             "gridder")
+    if not err_st <= IMAGE_TOL:
+        raise AssertionError(f"staged image parity failed: {err_st}")
+
+    # ---- 22. times at S=32 on the main path --------------------------------
+    recs, starts = main["recs"], main["starts"]
+    drecs, dstarts, order, _, a_sub, occ = main["drecs"]
+    gkw = dict(grid_shape=shape, theta=g.theta, subgrid=S32)
+    dkw = dict(grid_shape=shape, theta=d.theta, subgrid=S32)
+    it = idg_tile
+    ms = {}
+    for label, fn in (
+            ("gridder kernel (CUDA)", lambda: it.idg_grid_from_records(
+                recs, starts, shape, theta=g.theta, **kw32)),
+            ("gridder plain (PyTorch)", lambda: it.grid_from_records_plain(
+                recs, starts, taper_beta=BETA, **gkw)),
+            ("degridder kernel (CUDA)",
+             lambda: it._degrid_from_records_cuda(
+                 drecs, dstarts, order, occ, a_sub, **dkw)),
+            ("degridder plain (PyTorch)",
+             lambda: it.degrid_from_records_plain(
+                 drecs, dstarts, order, occ, a_sub, **dkw)),
+            ("degrid prologue (window sandwiches)", lambda: it.tile_images(
+                d.grid, dstarts, **kw32)),
+            ("gridder prep (bin + sort)", lambda: it.idg_bin_records(
+                shape, g.p, g.w, g.vis.real, g.vis.imag, subgrid=S32)),
+            ("degridder prep (bin + sort + order)",
+             lambda: it.prep_with_order(shape, d.p, d.w, subgrid=S32)),
+            ("idg_image(subgrid=32) end to end", lambda: ds.idg_image(
+                vd, theta=THETA, lam=LAM, device=dev, **kw32)),
+            ("idg_predict_vis(subgrid=32) end to end",
+             lambda: ds.idg_predict_vis(vd, model, theta=THETA, lam=LAM,
+                                        device=dev, **kw32))):
+        ms[label] = t = timed_ms(torch, fn)
+        print(f"time tile {label}: {t:.3f} ms = {n_vis / t / 1e3:.2f} M "
+              f"vis/s [{card}]")
+
+    # bounds from this run's inputs: 8·S² flop per record in a subgrid and
+    # the least sandwich count per occupied subgrid (the gridder's; the
+    # degridder's is its prologue, outside the kernel), each input read
+    # once and each output written once
+    n_in, n_din = int(starts[-1]), int(dstarts[-1])
+    HP, WP = idg_tile.tile_geometry(shape, S32).padded_shape
+    sw = sandwich_flop(S32)
+    g_io = nbytes(recs, starts) + HP * WP * 8
+    g_ops = 8 * S32 ** 2 * n_in + sw[0] * main["n_occ"]
+    g_bound = bound(g_ops, g_io)
+    g_dense = bound(8 * S32 ** 2 * n_in + sw[1] * main["n_occ"], g_io)[0]
+    print(f"tile gridder sandwich at S=32: {main['n_occ']} subgrids x "
+          f"{sw[0]:.0f} flop (dense {sw[1]:.0f}, FFT {sw[2]:.0f}); dense "
+          f"count {g_dense:.3f} ms")
+    d_bound = bound(8 * S32 ** 2 * n_din,
+                    nbytes(drecs, dstarts, order, occ, a_sub) + n_vis * 8)
+    for label, (b_ms, b_by), ops in (("gridder", g_bound, g_ops),
+                                     ("degridder", d_bound,
+                                      8 * S32 ** 2 * n_din)):
+        print(f"tile {label} bound at S=32: {ops / 1e9:.2f} GFLOP -> "
+              f"{b_ms:.3f} ms ({b_by}); the kernel at "
+              f"{100 * b_ms / ms[label + ' kernel (CUDA)']:.1f}% of it")
+    return [{
+        "name": idg_tile.GRID_KERNEL, "route": "cuda",
+        "source": "ska_sdp_tpu_torch/csrc/idg_tile_grid.cu",
+        "replaces": "ska_sdp_tpu/kernels/idg_pallas.py:49",
+        "launches": launches_g, "max_abs_err": main["max_abs_g"],
+        "ms": ms["gridder kernel (CUDA)"],
+        "plain_ms": ms["gridder plain (PyTorch)"],
+        "bound_ms": g_bound[0], "bound_by": g_bound[1], "library_ms": None,
+    }, {
+        "name": idg_tile.DEGRID_KERNEL, "route": "cuda",
+        "source": "ska_sdp_tpu_torch/csrc/idg_tile_degrid.cu",
+        "replaces": "ska_sdp_tpu/kernels/idg_degrid_pallas.py:41",
+        "launches": launches_d, "max_abs_err": main["max_abs_v"],
+        "ms": ms["degridder kernel (CUDA)"],
+        "plain_ms": ms["degridder plain (PyTorch)"],
+        "bound_ms": d_bound[0], "bound_by": d_bound[1], "library_ms": None,
+    }]
 
 
 if __name__ == "__main__":

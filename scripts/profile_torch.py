@@ -5,8 +5,9 @@ on one NVIDIA GPU, under ``torch.profiler``.
     python3 scripts/profile_torch.py [--calls 5] [--warmup 3]
 
 At ``chip_smoke.py``'s shapes (2400² grid; 1,046,528 visibilities of the
-512-station observation for ``idg_image``, ``idg_predict_vis``,
-``w_image``, ``w_predict_vis`` and ``aw_image``; 1,048,320 pair-major
+512-station observation for ``idg_image`` and ``idg_predict_vis`` at S=64
+(the streamed kernels) and at S=32 (the fixed-tile kernels), ``w_image``,
+``w_predict_vis`` and ``aw_image``; 1,048,320 pair-major
 track records with random A-kernels for ``aw_idg_image`` and
 ``aw_predict_vis``; the 32-plane, qpx=8, 15² w-kernel bank built on the
 card; near-delta A-kernels of the 512 stations for ``aw_image``), each
@@ -81,9 +82,13 @@ def main() -> int:
 
     kw = dict(theta=THETA, lam=LAM, device=dev)
     idg = dict(kw, subgrid=SUBGRID, taper_beta=BETA)
+    idg32 = dict(idg, subgrid=32)
     entries = {
         "idg_image": lambda: ds.idg_image(vd, **idg),
         "idg_predict_vis": lambda: ds.idg_predict_vis(vd, model, **idg),
+        "idg_image S=32": lambda: ds.idg_image(vd, **idg32),
+        "idg_predict_vis S=32": lambda: ds.idg_predict_vis(vd, model,
+                                                           **idg32),
         "aw_idg_image": lambda: ds.aw_idg_image(vd_aw, ak, **idg),
         "aw_predict_vis": lambda: ds.aw_predict_vis(vd_aw, ak, model, **idg),
         "w_image": lambda: ds.w_image(vd, bank, centers, **kw),

@@ -11,6 +11,7 @@ Examples:
         --model w.h5 -o pred.h5
     python -m ska_sdp_tpu_torch.cli --mode idg -i data/ --all -o img.h5
     python -m ska_sdp_tpu_torch.cli --mode idg -i data/ --all --device cpu
+    python -m ska_sdp_tpu_torch.cli --mode idg --device-phases -i data/ --all
     python -m ska_sdp_tpu_torch.cli --mode aw --idg -i data/ --all -o aw.h5
     python -m ska_sdp_tpu_torch.cli --mode predict --idg --aterms -i data/ \
         --all --model aw.h5 -o pred.h5
@@ -48,7 +49,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "-> vis: bank w-projection, or IDG / IDG-AW "
                         "degridding with --idg)")
     p.add_argument("--subgrid", type=int, default=64,
-                   help="IDG subgrid size (32, 64 or 128)")
+                   help="IDG subgrid size: any even S up to 128 with "
+                        "support 15 <= S/2+1 (32, 64 and 128 take the "
+                        "streamed kernels where they fit, the rest the "
+                        "fixed-tile kernels); IDG-AW: 32, 64 or 128")
     p.add_argument("--fov-pad", type=float, default=None,
                    help="IDG full-FOV guarantee: grid FOV/f and crop")
     p.add_argument("--precision", choices=["single", "double"],
@@ -72,7 +76,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--distributed", action="store_true",
                    help="multi-device imaging (not yet ported)")
     p.add_argument("--device-phases", action="store_true",
-                   help="staged device timings (not yet ported)")
+                   help="--mode idg: run the pipeline as separately "
+                        "synchronised stages and print each stage's time "
+                        "(other modes: not yet ported)")
     p.add_argument("--dump-intermediates", metavar="FILE", default=None,
                    help="--mode w debug dumps (not yet ported)")
     p.add_argument("--checkpoint", default=None,
@@ -130,7 +136,8 @@ def main(argv=None) -> int:
         return _not_ported(f"--mode {args.mode}")
     for flag, on in (("--channels", args.channels not in (None, 1)),
                      ("--distributed", args.distributed),
-                     ("--device-phases", args.device_phases),
+                     ("--device-phases",
+                      args.device_phases and args.mode != "idg"),
                      ("--dump-intermediates", args.dump_intermediates),
                      ("--checkpoint", args.checkpoint),
                      ("--out-of-core", args.out_of_core)):
@@ -148,6 +155,7 @@ def main(argv=None) -> int:
 
     from .config import GridParams, ImagingConfig
     from .models import dataset as ds
+    from .utils.timing import PhaseTimer
 
     vis_path = os.path.join(args.input_dir, "vis.h5")
     wkern_path = os.path.join(args.input_dir, "wkern.h5")
@@ -203,7 +211,12 @@ def main(argv=None) -> int:
             result = f"image max: {mx}"
         else:
             phase = "idg_gridding"
-            mx, _ = ds.idg_gridding(vis_path, **common, **idg_opts)
+            # None (not False) keeps the SKA_SDP_TPU_DUMP_PHASES fallback
+            timer = PhaseTimer(
+                enabled=(args.dump_phases or args.device_phases) or None)
+            mx, _ = ds.idg_gridding(vis_path, **common, **idg_opts,
+                                    timer=timer,
+                                    device_phases=args.device_phases)
             result = f"image max: {mx}"
     except (FileNotFoundError, ValueError, KeyError,
             NotImplementedError) as e:

@@ -10,13 +10,17 @@ tiled kernel and its slab route (``slab``, ``config.aw_slab``) have no
 counterpart.
 
 Plain IDG rides the streamed run kernels with unit screens and zero pair
-ids: every record keys to (pair 0, uv tile), runs are the occupied tiles
-and ``conj(1·1) = 1`` keeps the operator exact continuous-w IDG.  IDG-AW
-rides the same kernels with per-antenna screens.
+ids where they serve the shape losslessly: every record keys to (pair 0, uv
+tile), runs are the occupied tiles and ``conj(1·1) = 1`` keeps the operator
+exact continuous-w IDG.  Every other shape (S outside
+``STREAM_SUBGRIDS``, or a fit margin below 5, as S=32 with support 15 has)
+takes the fixed-tile kernels (``kernels/idg_tile.py``), as the reference
+does: any even S up to 128 with support ≤ S/2 + 1, no record limit, and no
+in-bounds record dropped.  IDG-AW rides the streamed kernels with
+per-antenna screens.
 
 Dropped records are counted per gridder and reported once per gridder on
-stderr.  The port has no slower route to fall back to: shapes outside the
-streamed kernels' envelope raise ``NotImplementedError``.
+stderr.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from ..ops.idg_aw import auto_fit_margin
 from .idg_aw_records import STREAM_SUBGRIDS
 from .aw_fused import aw_gridder
 from .idg_aw_stream import idg_aw_degridder_stream, idg_aw_gridder_stream
+from .idg_tile import idg_degrid_tile, idg_gridder_tile
 from .wproj import wproj_degridder, wproj_gridder
 
 __all__ = [
@@ -100,18 +105,17 @@ def idg_gridder(grid_shape, p: torch.Tensor, w: torch.Tensor,
     and ``w`` in wavelengths, on the inputs' device.
 
     Returns ``(guv [N, Nx] complex64, n_dropped)``; ``n_dropped`` (a 0-dim
-    tensor) counts in-bounds records the run split could not place — zero
-    by construction inside the envelope, since the run bound covers every
-    tile.  The dirty image must be divided by the fine taper
-    (``ops.idg.taper_fine``)."""
+    tensor) counts in-bounds records that could not be placed — zero by
+    construction on both routes: the streamed run bound covers every tile
+    and the fixed-tile route places every record.  The dirty image must be
+    divided by the fine taper (``ops.idg.taper_fine``)."""
     _check_idg_support(subgrid, support)
     mr = _idg_unit_run_bound(grid_shape, subgrid, support)
     if mr is None:
-        raise NotImplementedError(
-            f"IDG at subgrid={subgrid}, support={support} is outside the "
-            f"streamed gridder's envelope (S in {STREAM_SUBGRIDS}, fit "
-            "margin >= 5); the fixed-tile IDG kernel that serves it "
-            "(ska_sdp_tpu/kernels/idg_pallas.py) is not ported yet")
+        guv = idg_gridder_tile(grid_shape, p, w, vis, theta=theta,
+                               subgrid=subgrid, support=support,
+                               taper_beta=taper_beta)
+        return guv, torch.zeros((), dtype=torch.int64, device=p.device)
     zer = torch.zeros((p.shape[0],), dtype=torch.int32, device=p.device)
     scr = torch.ones((1, subgrid, subgrid), dtype=torch.complex64,
                      device=p.device)
@@ -129,17 +133,16 @@ def idg_degridder(grid_shape, p: torch.Tensor, w: torch.Tensor,
     wavelengths, on the inputs' device: the adjoint of :func:`idg_gridder`.
 
     Returns ``(vis [n] complex64, n_dropped)``; ``n_dropped`` is zero by
-    construction inside the envelope.  The model grid must already be
-    divided by the fine taper (``ops.idg.taper_fine``)."""
+    construction on both routes (records off the grid predict 0 and are
+    not counted).  The model grid must already be divided by the fine
+    taper (``ops.idg.taper_fine``)."""
     _check_idg_support(subgrid, support)
     mr = _idg_unit_run_bound(grid_shape, subgrid, support)
     if mr is None:
-        raise NotImplementedError(
-            f"IDG degridding at subgrid={subgrid}, support={support} is "
-            f"outside the streamed degridder's envelope (S in "
-            f"{STREAM_SUBGRIDS}, fit margin >= 5); the fixed-tile IDG "
-            "degrid kernel that serves it "
-            "(ska_sdp_tpu/kernels/idg_degrid_pallas.py) is not ported yet")
+        vis = idg_degrid_tile(grid_shape, p, w, grid, theta=theta,
+                              subgrid=subgrid, support=support,
+                              taper_beta=taper_beta)
+        return vis, torch.zeros((), dtype=torch.int64, device=p.device)
     zer = torch.zeros((p.shape[0],), dtype=torch.int32, device=p.device)
     scr = torch.ones((1, subgrid, subgrid), dtype=torch.complex64,
                      device=p.device)

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import math
 
 import numpy as np
@@ -52,10 +53,12 @@ def reset_launch_count() -> None:
         _launches[k] = 0
 
 
+@functools.lru_cache(maxsize=16)
 def _dft_factors(S: int, taper_beta: float, device=None):
     """The taper-folded DFT matrix ``F[y, q] = e^{−2πi k_y k_q / S}/S ·
     taper[q]`` (``k = i − S/2``) and its transpose, built in float64 and
-    returned as contiguous complex64."""
+    returned as contiguous complex64; built once per (S, β, device), so
+    callers only read them."""
     F = _dft_matrix(S, torch.complex128, device) / S
     if taper_beta > 0:
         F = F * kaiser_taper(S, taper_beta, torch.float64, device)[None, :]

@@ -33,7 +33,9 @@ where the bank and fused AW gridders pick each record's w-plane by
     model [IDG: → padded-FOV embedding → ÷ fine taper] → centred FFT
         → degridder at the records' unmirrored uvw in wavelengths
 
-There is no PSF normalisation on these paths.
+There is no PSF normalisation on these paths.  ``idg_gridding(...,
+device_phases=True)`` runs the IDG program as separately synchronised,
+timed stages (``_idg_staged``, the reference's ``--device-phases``).
 """
 
 from __future__ import annotations
@@ -49,6 +51,7 @@ from ..io import h5, schema
 from ..kernels import (_note_drops, idg_aw_degridder, idg_aw_gridder,
                        idg_degridder, idg_gridder, wproj_degridder,
                        wproj_gridder)
+from ..kernels.idg_tile import idg_bin_records, idg_grid_from_records
 from ..ops import (doweight, fft_centered, ifft_centered, make_grid_hermitian,
                    mirror_uvw, uvw_lambda)
 from ..ops.idg import (fov_pad_finish, fov_pad_geometry, fov_pad_start,
@@ -56,6 +59,7 @@ from ..ops.idg import (fov_pad_finish, fov_pad_geometry, fov_pad_start,
 from ..ops.idg_aw import aw_screens_host
 from ..ops.search import find_closest
 from ..types import precision as _precision
+from ..utils.timing import PhaseTimer
 from .imaging import aw_imaging
 
 
@@ -200,8 +204,10 @@ def idg_image(vis_data: VisData, *, theta: float = 0.008,
               device="cuda") -> IDGImage:
     """Image-domain-gridding dirty image of in-memory visibilities on
     ``device`` (``"cuda"`` runs the CUDA gridder, ``"cpu"`` its plain
-    version).  ``n`` caps the record count.  Dropped records are counted
-    in ``kernels.drop_counters()`` and warned about once."""
+    version): the streamed gridder where it serves the subgrid, the
+    fixed-tile one elsewhere (S=32 with support 15 among them).  ``n``
+    caps the record count.  Dropped records are counted in
+    ``kernels.drop_counters()`` and warned about once."""
     uvw, f, vis = idg_inputs(vis_data, n=n, precision=precision,
                              device=device)
     img, mx, n_dropped = _idg_pipeline(
@@ -212,24 +218,78 @@ def idg_image(vis_data: VisData, *, theta: float = 0.008,
     return IDGImage(img, float(mx), nd)
 
 
+def _idg_staged(uvw: torch.Tensor, f: torch.Tensor, vis: torch.Tensor, *,
+                theta: float, lam: int, subgrid: int, taper_beta: float,
+                timer: PhaseTimer, fov_pad: Optional[float] = None):
+    """The IDG imaging program on ``uvw``'s device as four separately
+    synchronised stages, timed by ``timer.device_stage``: ``preprocess``
+    (wavelengths, weights, mirroring), ``bin+sort`` (the fixed-tile prep),
+    ``idg-kernel+fold`` (the fixed-tile gridder) and
+    ``hermitian+ifft+taper``; ``fov_pad`` as in :func:`_idg_pipeline`.
+    Every stage runs twice (warm-up, then timed).  Returns ``(img,
+    image max)``."""
+    n, n_grid, theta_g, crop_lo = fov_pad_geometry(theta, lam, fov_pad)
+    shape = (n_grid, n_grid)
+    timer.dispatch_floor(uvw.device)
+
+    def prep(uvw, f, vis):
+        g = idg_grid_inputs(uvw, f, vis, theta=theta, lam=lam,
+                            fov_pad=fov_pad)
+        return g.p, g.w, g.vis
+
+    p, w, vis1 = timer.device_stage("preprocess", prep, uvw, f, vis)
+    recs, starts = timer.device_stage(
+        "bin+sort", idg_bin_records, shape, p, w, vis1.real, vis1.imag,
+        subgrid=subgrid)
+    guv = timer.device_stage(
+        "idg-kernel+fold", idg_grid_from_records, recs, starts, shape,
+        theta=theta_g, subgrid=subgrid, taper_beta=taper_beta)
+
+    def image(guv):
+        img = _idg_finish(guv, n, n_grid, crop_lo, subgrid, taper_beta,
+                          uvw.dtype)
+        return img, torch.max(img)
+
+    img, mx = timer.device_stage("hermitian+ifft+taper", image, guv)
+    return img, float(mx)
+
+
 def idg_gridding(datfile: str, n: Optional[int] = None,
                  outfile: Optional[str] = None,
                  config: ImagingConfig = ImagingConfig(),
+                 timer: Optional[PhaseTimer] = None,
                  subgrid: int = 64, taper_beta: float = 12.0,
-                 fov_pad: Optional[float] = None, device="cuda"):
+                 fov_pad: Optional[float] = None,
+                 device_phases: bool = False, device="cuda"):
     """IDG imaging run from an HDF5 file: load ``/vis``, image on
-    ``device``, optionally write ``/img`` (float64).  Returns
-    ``(image max, image as numpy)``."""
-    data = load_vis_data(datfile)
-    res = idg_image(data, theta=config.grid.theta, lam=config.grid.lam,
-                    n=n, subgrid=subgrid, taper_beta=taper_beta,
-                    fov_pad=fov_pad, precision=config.precision_name,
-                    device=device)
-    img = res.image.cpu().numpy()
+    ``device``, optionally write ``/img`` (float64).  ``device_phases``
+    runs the stage-synchronised :func:`_idg_staged` (through the
+    fixed-tile kernels, whatever the subgrid) and records its stage times
+    in ``timer``.  Returns ``(image max, image as numpy)``."""
+    timer = timer or PhaseTimer()
+    with timer.phase("ingest/vis"):
+        data = load_vis_data(datfile)
+    if device_phases:
+        uvw, f, vis = idg_inputs(data, n=n, precision=config.precision_name,
+                                 device=device)
+        img_t, mx = _idg_staged(uvw, f, vis, theta=config.grid.theta,
+                                lam=config.grid.lam, subgrid=subgrid,
+                                taper_beta=taper_beta, timer=timer,
+                                fov_pad=fov_pad)
+        img = img_t.cpu().numpy()
+    else:
+        with timer.phase("h2d+compile+grid+fft"):
+            res = idg_image(data, theta=config.grid.theta,
+                            lam=config.grid.lam, n=n, subgrid=subgrid,
+                            taper_beta=taper_beta, fov_pad=fov_pad,
+                            precision=config.precision_name, device=device)
+            img, mx = res.image.cpu().numpy(), res.image_max
     if outfile is not None:
-        h5.create_file(outfile)
-        h5.write_dataset(outfile, schema.IMG_DATASET, img.astype(np.float64))
-    return res.image_max, img
+        with timer.phase("write/img"):
+            h5.create_file(outfile)
+            h5.write_dataset(outfile, schema.IMG_DATASET,
+                             img.astype(np.float64))
+    return mx, img
 
 
 # ---------------------------------------------------------------------------
@@ -554,9 +614,8 @@ def idg_predict(datfile: str, modelfile: str, n: Optional[int] = None,
                 device="cuda"):
     """IDG prediction run from HDF5 files: ``/vis`` records and the
     ``/img`` model in, ``/vis/model`` out.  The default ``subgrid=32`` is
-    the reference's; with support 15 it needs the fixed-tile kernel and
-    raises ``NotImplementedError`` until that is ported.  Returns
-    ``(predicted ndarray, peak |vis|)``."""
+    the reference's; with support 15 it runs on the fixed-tile degridder.
+    Returns ``(predicted ndarray, peak |vis|)``."""
     data = load_vis_data(datfile)
     img = h5.read_dataset(modelfile, schema.IMG_DATASET)
     res = idg_predict_vis(data, img, theta=config.grid.theta,

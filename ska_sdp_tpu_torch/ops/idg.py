@@ -1,6 +1,7 @@
 """Image-domain gridding helpers (port of ``ska_sdp_tpu/ops/idg.py``): the
 Kaiser subgrid taper, its fine-grid divisor, the padded-FOV plan (both
-directions), and the centred DFT matrix.
+directions), the centred DFT matrix, and the overlap fold of half-overlapping
+subgrids and its adjoint.
 
 IDG multiplies every subgrid image by a separable taper ``t(l)·t(m)`` and
 divides the final dirty image by the taper's band-limited interpolation
@@ -11,6 +12,7 @@ of the whole image).  The taper is built in float64 and cast at the end.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -90,3 +92,35 @@ def _dft_matrix(S: int, dtype=torch.complex64, device=None):
     k = torch.arange(S, dtype=ftype, device=device) - S // 2
     ph = -2.0 * math.pi * torch.outer(k, k) / S
     return torch.polar(torch.ones_like(ph), ph).to(dtype)
+
+
+def _check_overlap(S: int, T: int) -> None:
+    if S != 2 * T:
+        raise ValueError(f"subgrids overlap by half: S must be 2T, got "
+                         f"S={S}, T={T}")
+
+
+def _fold_overlap(blocks: torch.Tensor, nty: int, ntx: int, S: int, T: int):
+    """Overlap-add subgrid blocks ``[nty, ntx, S, S]`` (stride T, size
+    S = 2T) into the padded grid ``[(nty + 1)·T, (ntx + 1)·T]``: four
+    dense reshape-adds, one per quadrant of the blocks."""
+    _check_overlap(S, T)
+    g = blocks.new_zeros((nty + 1, T, ntx + 1, T))
+    g[:nty, :, :ntx] += blocks[:, :, :T, :T].permute(0, 2, 1, 3)
+    g[:nty, :, 1:] += blocks[:, :, :T, T:].permute(0, 2, 1, 3)
+    g[1:, :, :ntx] += blocks[:, :, T:, :T].permute(0, 2, 1, 3)
+    g[1:, :, 1:] += blocks[:, :, T:, T:].permute(0, 2, 1, 3)
+    return g.reshape((nty + 1) * T, (ntx + 1) * T)
+
+
+def _overlap_windows(gp: torch.Tensor, nty: int, S: int, T: int,
+                     ntx: Optional[int] = None):
+    """All S×S subgrid windows ``[nty, ntx, S, S]`` (stride T, S = 2T) of
+    the padded grid: the adjoint of :func:`_fold_overlap`."""
+    _check_overlap(S, T)
+    if ntx is None:
+        ntx = nty
+    b = gp.reshape(nty + 1, T, ntx + 1, T).permute(0, 2, 1, 3)
+    top = torch.cat([b[:nty, :ntx], b[:nty, 1:]], dim=-1)
+    bot = torch.cat([b[1:, :ntx], b[1:, 1:]], dim=-1)
+    return torch.cat([top, bot], dim=-2)

@@ -281,14 +281,30 @@ class TestDegridPieces:
                 recs, *runs, order, scr, grid=gp, theta=THETA, subgrid=48,
                 taper_beta=12.0)
 
-    def test_dispatch_envelopes(self):
+    def test_dispatch_envelopes(self, jref):
+        # S=32 with support 15 is outside the streamed envelope: the
+        # fixed-tile degridder serves it, as in the reference
+        from ska_sdp_tpu.kernels import idg_degridder as j_idg_degridder
+
+        jnp = jref.jnp
+        rng = np.random.default_rng(25)
+        pr, wr, _, _, _ = random_problem(rng, b=1500, extent=0.52)
+        G = (rng.standard_normal((N, N))
+             + 1j * rng.standard_normal((N, N))).astype(np.complex64)
+        got, nd = kernels.idg_degridder(
+            (N, N), torch.as_tensor(pr), torch.as_tensor(wr),
+            torch.as_tensor(G), theta=THETA, subgrid=32)
+        want = np.asarray(j_idg_degridder(
+            (N, N), jnp.asarray(pr), jnp.asarray(wr), jnp.asarray(G),
+            theta=THETA, subgrid=32))
+        assert int(nd) == 0
+        assert _rel(got.numpy(), want) < TOL
+        np.testing.assert_array_equal(got.numpy() == 0, want == 0)
         p = torch.zeros((4, 3))
         w = torch.zeros((4,))
         z = torch.zeros((4,), dtype=torch.int32)
         g = torch.zeros((N, N), dtype=torch.complex64)
         v = torch.ones((4,), dtype=torch.complex64)
-        with pytest.raises(NotImplementedError, match="idg_degrid_pallas"):
-            kernels.idg_degridder((N, N), p, w, g, theta=THETA, subgrid=32)
         with pytest.raises(ValueError):
             kernels.idg_degridder((N, N), p, w, g, theta=THETA, subgrid=16)
         scr = torch.ones((1, 48, 48), dtype=torch.complex64)

@@ -251,17 +251,32 @@ class TestDispatch:
         # the two agree wherever the reference takes the run path
         assert got == jref.unit_run_bound((N, N), S, support)
 
-    def test_outside_envelope_raises(self):
-        p = torch.zeros((4, 3))
-        w = torch.zeros((4,))
-        v = torch.ones((4,), dtype=torch.complex64)
-        with pytest.raises(NotImplementedError, match="idg_pallas"):
-            kernels.idg_gridder((N, N), p, w, v, theta=THETA, subgrid=32)
-        with pytest.raises(NotImplementedError):
-            kernels.idg_gridder((N, N), p, w, v, theta=THETA, subgrid=48,
-                                support=7)
+    def test_outside_envelope_raises(self, jref):
+        # outside the streamed envelope the fixed-tile route serves the
+        # shape, as in the reference; only an unservable support or an odd
+        # subgrid still raises
+        from ska_sdp_tpu.kernels import idg_gridder as j_idg_gridder
+
+        jnp = jref.jnp
+        p, w, _, _, v = random_problem(np.random.default_rng(24), b=1500,
+                                       extent=0.52)
+        for S, support in ((32, 15), (48, 7)):
+            assert kernels._idg_unit_run_bound((N, N), S, support) is None
+            got, nd = kernels.idg_gridder(
+                (N, N), torch.as_tensor(p), torch.as_tensor(w),
+                torch.as_tensor(v), theta=THETA, subgrid=S, support=support)
+            want = np.asarray(j_idg_gridder(
+                (N, N), jnp.asarray(p), jnp.asarray(w), jnp.asarray(v),
+                theta=THETA, subgrid=S, support=support))
+            assert int(nd) == 0
+            assert _rel(got.numpy(), want) < TOL
+        pz = torch.zeros((4, 3))
+        wz = torch.zeros((4,))
+        vz = torch.ones((4,), dtype=torch.complex64)
         with pytest.raises(ValueError):
-            kernels.idg_gridder((N, N), p, w, v, theta=THETA, subgrid=16)
+            kernels.idg_gridder((N, N), pz, wz, vz, theta=THETA, subgrid=16)
+        with pytest.raises(ValueError, match="even"):
+            kernels.idg_gridder((N, N), pz, wz, vz, theta=THETA, subgrid=33)
 
     def test_drop_counters_warn_once(self, capsys):
         kernels.reset_drop_counters()

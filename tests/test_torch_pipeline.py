@@ -145,7 +145,9 @@ class TestCLI:
 
     def test_import_loads_no_jax(self):
         code = ("import sys, ska_sdp_tpu_torch.cli, "
-                "ska_sdp_tpu_torch.models.dataset; "
+                "ska_sdp_tpu_torch.models.dataset, "
+                "ska_sdp_tpu_torch.utils.timing, "
+                "ska_sdp_tpu_torch.kernels.idg_tile; "
                 "bad = [m for m in ('jax', 'ska_sdp_tpu', 'h5py') "
                 "if m in sys.modules]; "
                 "assert not bad, bad")

@@ -11,8 +11,8 @@
   ``idg_degrid_aw`` on the CPU: rel-L2 ≤ 5e-5;
 * a point source against its direct-DFT truth: max |err| ≤ 2e-4, the bound
   of the reference's point-source test;
-* the file entry at the reference's default ``subgrid=32`` names the
-  fixed-tile kernel it needs.
+* the file entry at the reference's default ``subgrid=32`` (the fixed-tile
+  degridder) against the JAX file entry: rel-L2 ≤ 5e-5.
 """
 
 import numpy as np
@@ -164,8 +164,18 @@ class TestIDGPredict:
         h5.write_dataset(model, schema.IMG_DATASET,
                          observation[1].astype(np.float64))
         cfg = ImagingConfig(grid=GridParams(theta=THETA, lam=LAM))
-        with pytest.raises(NotImplementedError, match="idg_degrid_pallas"):
-            ds.idg_predict(vis, model, config=cfg, device="cpu")
+        # the reference's default S=32 (support 15) runs on the fixed-tile
+        # degridder; the JAX entry on the CPU runs its fixed-tile XLA
+        # degridder, the same tiling
+        got, peak = ds.idg_predict(vis, model, config=cfg, device="cpu")
+        from ska_sdp_tpu.config import GridParams as JGridParams
+        from ska_sdp_tpu.config import ImagingConfig as JImagingConfig
+
+        j_cfg = JImagingConfig(grid=JGridParams(theta=THETA, lam=LAM))
+        want, j_peak = j_ds.idg_predict(vis, model, config=j_cfg)
+        assert got.shape == want.shape == (obs["n"],)
+        assert _rel(got, want) < TOL
+        assert abs(peak - j_peak) < TOL * j_peak
         with pytest.raises(ValueError, match="does not match grid"):
             ds.idg_predict(vis, model, device="cpu", subgrid=64)
 
