@@ -10,14 +10,17 @@ At ``chip_smoke.py``'s shapes (2400² grid; 1,046,528 visibilities of the
 ``w_predict_vis`` and ``aw_image``; 1,048,320 pair-major
 track records with random A-kernels for ``aw_idg_image`` and
 ``aw_predict_vis``; the 32-plane, qpx=8, 15² w-kernel bank built on the
-card; near-delta A-kernels of the 512 stations for ``aw_image``), each
-entry is called ``--warmup`` times, then ``--calls`` times under the
-profiler, each call ending in a synchronise.  Per entry it prints one
-JSON line: the wall time per call (host clock, profiler on), the device
+card; near-delta A-kernels of the 512 stations for ``aw_image``; and the
+spectral cubes of ``chip_smoke.py`` phase 24: ``idg_cube`` (S=64) and
+``w_cube`` of bench cell 8's 8-channel observation, ``aw_idg_cube`` of the
+8-channel track raster), each entry is called ``--warmup`` times, then
+``--calls`` times without the profiler and ``--calls`` times under it,
+each call ending in a synchronise.  Per entry it prints one JSON line: the
+wall time per call with the profiler off and on (host clock), the device
 busy time per call (the sum of the device events: kernels, copies and
-memsets, on one stream), the idle share ``1 − busy / wall``, and the
-three largest device items.  The card's name
-and power limit come first.  It needs a CUDA card and stops without one.
+memsets, on one stream), the idle share ``1 − busy / wall`` against each
+wall, and the three largest device items.  The card's name and power
+limit come first.  It needs a CUDA card and stops without one.
 """
 
 from __future__ import annotations
@@ -32,10 +35,16 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def profile(torch, fn, calls: int, warmup: int):
-    """``(wall ms per call, {device item: ms per call})``."""
+    """``(wall ms per call without the profiler, wall ms per call under it,
+    {device item: ms per call})``."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+        torch.cuda.synchronize()
+    bare = (time.perf_counter() - t0) / calls * 1e3
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -49,7 +58,7 @@ def profile(torch, fn, calls: int, warmup: int):
         if e.device_type == torch.autograd.DeviceType.CUDA:
             items[e.name] = (items.get(e.name, 0.0)
                              + e.time_range.elapsed_us() / 1e3 / calls)
-    return wall, items
+    return bare, wall, items
 
 
 def main() -> int:
@@ -63,10 +72,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("error: no CUDA device visible", file=sys.stderr)
         return 1
-    from chip_smoke import (BETA, LAM, SUBGRID, THETA, aw_track_inputs,
+    from chip_smoke import (BETA, LAM, SUBGRID, THETA, aw_cube_inputs,
+                            aw_track_inputs, cube_akerns, cube_observation,
                             main_akerns, main_observation, smi,
                             snapped_model, w_bank_inputs)
     from ska_sdp_tpu_torch.models import dataset as ds
+    from ska_sdp_tpu_torch.models import spectral as sp
 
     dev = torch.device("cuda", 0)
     card = smi()
@@ -79,6 +90,10 @@ def main() -> int:
     centers, build_bank = w_bank_inputs(torch, obs, dev)
     bank = build_bank()
     ak_main = main_akerns()
+    obs_c, vd_c = cube_observation()
+    centers_c, build_bank_c = w_bank_inputs(torch, obs_c, dev)
+    bank_c = build_bank_c()
+    vd_aw_c, ak_c = aw_cube_inputs(), cube_akerns()
 
     kw = dict(theta=THETA, lam=LAM, device=dev)
     idg = dict(kw, subgrid=SUBGRID, taper_beta=BETA)
@@ -95,15 +110,21 @@ def main() -> int:
         "w_predict_vis": lambda: ds.w_predict_vis(vd, bank, centers, model,
                                                   **kw),
         "aw_image": lambda: ds.aw_image(vd, bank, centers, ak_main, **kw),
+        "idg_cube (8 ch)": lambda: sp.idg_cube(vd_c, **idg),
+        "aw_idg_cube (8 ch)": lambda: sp.aw_idg_cube(vd_aw_c, ak_c, **idg),
+        "w_cube (8 ch)": lambda: sp.w_cube(vd_c, bank_c, centers_c, **kw),
     }
     for name, fn in entries.items():
-        wall, items = profile(torch, fn, args.calls, args.warmup)
+        bare, wall, items = profile(torch, fn, args.calls, args.warmup)
         busy = sum(items.values())
         top = sorted(items.items(), key=lambda kv: -kv[1])[:3]
+        measured = busy > 0
         print(json.dumps({
-            "entry": name, "wall_ms": wall,
-            "device_busy_ms": busy if busy > 0 else "not measured",
-            "idle_share": 1.0 - busy / wall if busy > 0 else "not measured",
+            "entry": name, "wall_ms": bare, "wall_ms_profiled": wall,
+            "device_busy_ms": busy if measured else "not measured",
+            "idle_share": 1.0 - busy / bare if measured else "not measured",
+            "idle_share_profiled": (1.0 - busy / wall if measured
+                                    else "not measured"),
             "top_device_items_ms": {k[:60]: v for k, v in top},
             "card": card}))
     return 0

@@ -1,6 +1,6 @@
 """Command-line interface of the port (the ``--mode aw [--idg]``, ``--mode
-w``, ``--mode idg``, ``--mode predict [--idg [--aterms]]`` and
-``--make-data`` surfaces of ``ska_sdp_tpu/cli.py``, same flag names,
+w``, ``--mode idg``, ``--mode predict [--idg [--aterms]]``, ``--channels N``
+and ``--make-data`` surfaces of ``ska_sdp_tpu/cli.py``, same flag names,
 defaults and messages).
 
 Examples:
@@ -15,14 +15,19 @@ Examples:
     python -m ska_sdp_tpu_torch.cli --mode aw --idg -i data/ --all -o aw.h5
     python -m ska_sdp_tpu_torch.cli --mode predict --idg --aterms -i data/ \
         --all --model aw.h5 -o pred.h5
+    python -m ska_sdp_tpu_torch.cli --make-data data/ --nchan 4
+    python -m ska_sdp_tpu_torch.cli --mode idg --channels 4 -i data/ --all \
+        -o cube.h5                     # also --mode w, --mode aw --idg
 
-Modes and flags of the reference that are not ported yet are accepted by
-the parser and exit with status 2 and a "not yet ported" message.
+Every flag of the reference parses.  Modes and flags that are not ported
+yet exit with status 2 and a "not yet ported" message; ``--backend cpu``
+is ``--device cpu``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 import time
@@ -70,9 +75,30 @@ def build_parser() -> argparse.ArgumentParser:
                    help="print per-phase wall-clock timings")
     p.add_argument("--theta", type=float, default=0.008)
     p.add_argument("--lam", type=int, default=300000)
-    # reference flags of surfaces not ported yet
     p.add_argument("--channels", type=int, default=None,
-                   help="spectral cubes (not yet ported)")
+                   help="image N spectral channels, each at its own "
+                        "frequency (modes w, idg, aw --idg); record binning "
+                        "is shared per channel group; writes /img (channel "
+                        "mean) + /img_cube [nch, n, n]")
+    p.add_argument("--backend", choices=["tpu", "cpu"], default=None,
+                   help="the reference's device switch: cpu is --device "
+                        "cpu; tpu is not ported")
+    p.add_argument("--trace-dir", default=None,
+                   help="write a torch.profiler trace (Chrome JSON) of each "
+                        "timed phase here")
+    # reference flags of surfaces not ported yet
+    p.add_argument("--gridder", choices=["auto", "xla", "pallas"],
+                   default=None,
+                   help="the reference's gridder selector (not ported: one "
+                        "route per mode)")
+    p.add_argument("--wstep", type=float, default=None,
+                   help="w-bin width for --mode wcache (not yet ported)")
+    p.add_argument("--metrics", default=None,
+                   help="JSON-lines metrics file (not yet ported)")
+    p.add_argument("--xla-dump", default=None, metavar="DIR",
+                   help="the reference's compiler dumps (not ported)")
+    p.add_argument("--slab", type=int, default=None,
+                   help="visibilities per checkpoint slab (not yet ported)")
     p.add_argument("--distributed", action="store_true",
                    help="multi-device imaging (not yet ported)")
     p.add_argument("--device-phases", action="store_true",
@@ -134,7 +160,12 @@ def main(argv=None) -> int:
 
     if args.mode not in ("w", "idg", "aw", "predict"):
         return _not_ported(f"--mode {args.mode}")
-    for flag, on in (("--channels", args.channels not in (None, 1)),
+    for flag, on in (("--backend tpu", args.backend == "tpu"),
+                     ("--gridder", args.gridder),
+                     ("--wstep", args.wstep is not None),
+                     ("--metrics", args.metrics),
+                     ("--xla-dump", args.xla_dump),
+                     ("--slab", args.slab is not None),
                      ("--distributed", args.distributed),
                      ("--device-phases",
                       args.device_phases and args.mode != "idg"),
@@ -143,11 +174,12 @@ def main(argv=None) -> int:
                      ("--out-of-core", args.out_of_core)):
         if on:
             return _not_ported(flag)
+    multichannel = args.channels is not None and args.channels > 1
     if args.aterms and not (args.mode == "predict" and args.idg):
         print("error: --aterms requires --mode predict --idg",
               file=sys.stderr)
         return 1
-    if args.mode == "predict" and not args.model:
+    if args.mode == "predict" and not args.model and not multichannel:
         print("error: --mode predict requires --model", file=sys.stderr)
         return 1
 
@@ -155,6 +187,7 @@ def main(argv=None) -> int:
 
     from .config import GridParams, ImagingConfig
     from .models import dataset as ds
+    from .models import spectral
     from .utils.timing import PhaseTimer
 
     vis_path = os.path.join(args.input_dir, "vis.h5")
@@ -170,7 +203,12 @@ def main(argv=None) -> int:
         if not os.path.exists(path):
             print(f"error: input file not found: {path}", file=sys.stderr)
             return 1
-    device = torch.device(args.device)
+    if multichannel and not (args.mode in ("idg", "w")
+                             or (args.mode == "aw" and args.idg)):
+        print("error: --channels supports --mode w, --mode idg and "
+              "--mode aw --idg", file=sys.stderr)
+        return 1
+    device = torch.device("cpu" if args.backend == "cpu" else args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         print("error: no CUDA device; pass --device cpu to run the plain "
               "versions", file=sys.stderr)
@@ -182,38 +220,67 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     common = dict(n=cfg.n_vis, outfile=args.output, config=cfg, device=device)
     idg_opts = dict(subgrid=args.subgrid, fov_pad=args.fov_pad)
+    # None (not False) keeps the SKA_SDP_TPU_DUMP_PHASES fallback
+    timer = PhaseTimer(enabled=(args.dump_phases or args.device_phases)
+                       or None, trace_dir=args.trace_dir)
+
+    def traced(name):
+        """A whole-run phase, so --trace-dir traces the file entries that take
+        no timer of their own."""
+        return (timer.phase(name) if timer.trace_dir
+                else contextlib.nullcontext())
+
     try:
-        if args.mode == "predict":
+        if multichannel:
+            mc = dict(common, timer=timer)
+            if args.mode == "idg":
+                phase = "idg_gridding_multi"
+                mx, _, cube = spectral.idg_gridding_multi(
+                    vis_path, args.channels, **mc, **idg_opts)
+            elif args.mode == "aw":
+                phase = "aw_idg_gridding_multi"
+                mx, _, cube = spectral.aw_idg_gridding_multi(
+                    akern_path, vis_path, args.channels, **mc, **idg_opts)
+            else:
+                phase = "w_gridding_multi"
+                mx, _, cube = spectral.w_gridding_multi(
+                    wkern_path, vis_path, args.channels, **mc)
+            result = (f"imaged {cube.shape[0]} channels, continuum image "
+                      f"max: {mx}")
+        elif args.mode == "predict":
             if w_bank:
                 phase = "w_predict"
-                pred, peak = ds.w_predict(wkern_path, vis_path, args.model,
-                                          **common)
+                with traced(phase):
+                    pred, peak = ds.w_predict(wkern_path, vis_path,
+                                              args.model, **common)
             elif args.aterms:
                 phase = "aw_predict"
-                pred, peak = ds.aw_predict(akern_path, vis_path, args.model,
-                                           **common, **idg_opts)
+                with traced(phase):
+                    pred, peak = ds.aw_predict(akern_path, vis_path,
+                                               args.model, **common,
+                                               **idg_opts)
             else:
                 phase = "idg_predict"
-                pred, peak = ds.idg_predict(vis_path, args.model, **common,
-                                            **idg_opts)
+                with traced(phase):
+                    pred, peak = ds.idg_predict(vis_path, args.model,
+                                                **common, **idg_opts)
             result = (f"predicted {pred.shape[0]} visibilities, peak "
                       f"|vis|: {peak}")
         elif w_bank:
             phase = "w_gridding"
-            mx, _ = ds.w_gridding(wkern_path, vis_path, **common)
+            with traced(phase):
+                mx, _ = ds.w_gridding(wkern_path, vis_path, **common)
             result = f"image max: {mx}"
         elif args.mode == "aw":
             phase = "aw_gridding"
             opts = idg_opts if args.idg else {}
-            mx, _ = ds.aw_gridding(None if args.idg else wkern_path,
-                                   akern_path, vis_path, idg=args.idg,
-                                   **common, **opts)
+            with traced(phase):
+                mx, _ = ds.aw_gridding(None if args.idg else wkern_path,
+                                       akern_path, vis_path, idg=args.idg,
+                                       **common, **opts)
             result = f"image max: {mx}"
         else:
             phase = "idg_gridding"
-            # None (not False) keeps the SKA_SDP_TPU_DUMP_PHASES fallback
-            timer = PhaseTimer(
-                enabled=(args.dump_phases or args.device_phases) or None)
             mx, _ = ds.idg_gridding(vis_path, **common, **idg_opts,
                                     timer=timer,
                                     device_phases=args.device_phases)

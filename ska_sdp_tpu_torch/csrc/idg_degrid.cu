@@ -16,6 +16,12 @@
 //
 // for each record b in [starts[r], ends[r]), written to out[order_s[b]].
 //
+// It also stands for the run-major
+// ska_sdp_tpu/kernels/idg_aw_degrid_pallas.py::_kernel (the same operator;
+// its head/main block protocol and unsort epilogue exist for the TPU's block
+// DMA: here each visibility is written once to its original index; parity:
+// tests/test_torch_spectral.py).
+//
 // Design (a simple, correct first kernel):
 // * one thread block of 256 threads per run, as in the gridder; the TPU
 //   kernel walks one sorted stream on one core and carries the run image in

@@ -14,6 +14,12 @@
 //
 // into a complex64 padded grid [N + 2S, Nx + 2S]; the wrapper crops it.
 //
+// It also stands for the run-major ska_sdp_tpu/kernels/idg_aw_pallas.py::_kernel
+// (the same operator, one grid step per run, used by the reference's spectral
+// cubes under SKA_SDP_TPU_IDG_AW_KERNEL=run): its double-buffered block DMA,
+// lane-interleaved sandwich factors and aligned rolls are TPU plumbing
+// (parity: tests/test_torch_spectral.py, chip_smoke.py phase 23).
+//
 // Design (a simple, correct first kernel):
 // * one thread block of 256 threads per run; nothing is carried between
 //   blocks (the TPU kernel's accumulator persists across sequential grid

@@ -19,6 +19,7 @@
 
   image output:
     /img            [n, n] float64
+    /img_cube       [nch, n, n] float64   (--channels N; /img is its mean)
 
   predicted visibilities:
     /vis/model      [n] complex
@@ -37,6 +38,7 @@ VIS_ANTENNA2 = "/vis/antenna2"
 VIS_TIME = "/vis/time"
 VIS_FREQUENCY = "/vis/frequency"
 IMG_DATASET = "/img"
+IMG_CUBE_DATASET = "/img_cube"
 MODEL_VIS_DATASET = "/vis/model"
 
 

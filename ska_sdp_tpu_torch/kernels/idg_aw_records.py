@@ -1,6 +1,7 @@
 """IDG(-AW) run prep: sort records into (pair, uv-tile) runs and build the
 run table (port of the prep half of ``ska_sdp_tpu/kernels/idg_aw_pallas.py``:
-``idg_aw_run_records`` and ``_run_csr``, and of
+``idg_aw_run_records``, ``_run_csr``, ``idg_aw_run_records_multi`` and
+``idg_aw_records_for_channel``, and of
 ``ska_sdp_tpu/kernels/idg_aw_degrid_pallas.py::idg_aw_degrid_records``).
 
 Plain tensor work on the records' device: one stable sort (a fused
@@ -20,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.idg_aw import PAIR_SHIFT, SENTINEL, _record_keys
+from ..ops.idg_aw import PAIR_SHIFT, SENTINEL, _record_keys, auto_fit_margin
 
 # Subgrid sizes the streamed gridder and degridder take.
 STREAM_SUBGRIDS = (32, 64, 128)
@@ -130,6 +131,95 @@ def idg_aw_run_records(grid_shape, p, a1, a2, w, vis_re, vis_im, *,
                  + torch.sum(overflow & placeable_s))
     return (recs.contiguous(), starts, ends, y0, x0, ia1, ia2, n_dropped,
             (HP, WP))
+
+
+def idg_aw_run_records_multi(grid_shape, p, a1, a2, w, vis_re_mc,
+                             vis_im_mc, *, subgrid: int = 64,
+                             support: int = 15, max_runs: int = 4096,
+                             fit_margin: int = 0, drift_cells: int = 0,
+                             ordered: bool = False):
+    """Multi-channel run prep: bin once at the reference channel, update
+    each channel elementwise (:func:`idg_aw_records_for_channel`).
+
+    ``p``/``w`` are at the reference channel (a channel group's centre
+    frequency), ``vis_re_mc``/``vis_im_mc`` ``[nch, n]``.  The binning margin
+    is the full fit margin less ``drift_cells``, so a record binned at the
+    reference channel stays within the full margin at every channel that
+    moves it by at most that many cells.  One stable two-key (pair, tile)
+    sort orders the geometry and every channel's visibilities together;
+    ``ordered=True`` skips it, as in :func:`idg_aw_run_records`.
+
+    Returns ``(base [6, n] float32 rows (dy, dx, w, cy, cx, live), vis_s
+    [nch, 2, n] float32, starts, ends, y0, x0, ia1, ia2 [max_runs] int32,
+    n_dropped_base (0-dim int64), (HP, WP))``: ``cy``/``cx`` are the
+    record's tile-centre offset from the grid centre and ``live`` marks the
+    records inside a run.
+    """
+    S = subgrid
+    margin_full = fit_margin if fit_margin > 0 else auto_fit_margin(S,
+                                                                     support)
+    margin_bin = margin_full - drift_cells
+    if margin_bin <= 0:
+        raise ValueError("drift_cells leaves no binning margin")
+    n = p.shape[0]
+    if n == 0:
+        raise ValueError("idg_aw_run_records_multi needs at least one record")
+    (pkey, tkey, dy, dx, valid, fit, Tc, ntx_t,
+     HP, WP) = _record_keys(grid_shape, p, a1, a2, S, support, margin_bin)
+    N, Nx = grid_shape
+    f32 = torch.float32
+    use = valid & fit
+    ty = tkey // ntx_t
+    tx = tkey - ty * ntx_t
+    y0r = torch.clamp(ty * Tc - (S - Tc) // 2, 0, HP - S)
+    x0r = torch.clamp(tx * Tc - (S - Tc) // 2, 0, WP - S)
+    cy = (y0r + (S // 2 - N // 2 - S)).to(f32)
+    cx = (x0r + (S // 2 - Nx // 2 - S)).to(f32)
+    geo = torch.stack([dy, dx, w.to(f32), cy, cx])
+    vis = torch.where(use, torch.stack([vis_re_mc, vis_im_mc], 1).to(f32),
+                      torch.zeros((), dtype=f32, device=p.device))
+    if ordered:
+        pk_s, tk_s = pkey, tkey
+    else:
+        key = pkey.to(torch.int64) * 2**31 + tkey.to(torch.int64)
+        _, perm = torch.sort(key, stable=True)
+        pk_s, tk_s = pkey[perm], tkey[perm]
+        geo, vis = geo[:, perm], vis[:, :, perm]
+
+    _, starts, ends, y0, x0, ia1, ia2, overflow = _run_csr(
+        pk_s, tk_s, n, max_runs, Tc, ntx_t, S, HP, WP)
+    placeable_s = pk_s < SENTINEL
+    n_dropped = (torch.sum(valid & ~fit)
+                 + torch.sum(overflow & placeable_s))
+    live = (placeable_s & ~overflow).to(f32)
+    base = torch.cat([geo, live[None]])
+    return (base, vis.contiguous(), starts, ends, y0, x0, ia1, ia2,
+            n_dropped, (HP, WP))
+
+
+def idg_aw_records_for_channel(base, vis_c, ratio, *, subgrid: int = 64,
+                               support: int = 15, fit_margin: int = 0):
+    """One channel's gridder records from the multi prep (elementwise, no
+    sort): ``dy_c = r·dy + (r − 1)·cy`` (and ``dx_c``), ``w_c = r·w`` in
+    float32 with ``r = f_c/f_ref`` rounded to float32, the reference's
+    order of operations.  Records outside the full fit margin at this
+    channel keep their place but lose their visibilities, and the live ones
+    among them are counted.
+
+    ``vis_c`` is the channel's ``[2, n]`` slice of ``vis_s``.  Returns
+    ``(recs [5, n] float32 for idg_aw_grid_from_records_stream, n_masked
+    (0-dim int64))``."""
+    margin_full = fit_margin if fit_margin > 0 else auto_fit_margin(subgrid,
+                                                                     support)
+    r = torch.as_tensor(ratio, dtype=torch.float32, device=base.device)
+    dy, dx, w, cy, cx, live = base
+    dy_c = r * dy + (r - 1.0) * cy
+    dx_c = r * dx + (r - 1.0) * cx
+    ok = (torch.abs(dy_c) <= margin_full) & (torch.abs(dx_c) <= margin_full)
+    okf = ok.to(torch.float32)
+    n_masked = torch.sum((live > 0) & ~ok)
+    recs = torch.stack([dy_c, dx_c, r * w, vis_c[0] * okf, vis_c[1] * okf])
+    return recs, n_masked
 
 
 def from_jax_run_records(recs, starts, ends, y0, x0, ia1, ia2, n_dropped,

@@ -17,7 +17,11 @@ and zero pair ids both are plain continuous-w IDG.
 
 The wrappers launch the CUDA kernels for CUDA tensors and use the plain
 versions only for CPU tensors; they never fall back.  All compute in full
-float32, the reference's ``exact`` precision tier.
+float32, the reference's ``exact`` precision tier.  The reference's
+run-major kernels (``idg_aw_pallas.py::_kernel`` and
+``idg_aw_degrid_pallas.py::_kernel``, selected by
+``SKA_SDP_TPU_IDG_AW_KERNEL=run``) compute the same two operators, so the
+port has no selector: both fold into this pair.
 """
 
 from __future__ import annotations

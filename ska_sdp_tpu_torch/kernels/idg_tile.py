@@ -1,7 +1,8 @@
 """Fixed-tile IDG gridder and degridder: the record prep, wrappers of the
 CUDA kernels ``csrc/idg_tile_grid.cu`` and ``csrc/idg_tile_degrid.cu`` and
 their plain PyTorch versions (port of ``ska_sdp_tpu/kernels/idg_pallas.py``:
-``idg_bin_records``, ``idg_grid_from_records``, ``idg_gridder_pallas``; and
+``idg_bin_records``, ``idg_bin_records_multi``, ``idg_records_for_channel``,
+``idg_grid_from_records``, ``idg_gridder_pallas``; and
 of ``ska_sdp_tpu/kernels/idg_degrid_pallas.py``: ``_prep_with_order`` and
 ``idg_degrid_wproj_pallas``).
 
@@ -150,6 +151,81 @@ def idg_bin_records(grid_shape, p, w, vis_re, vis_im, *, subgrid: int = 64,
     perm, starts = _sort_csr(t, geo.n_sub)
     recs = torch.stack([dy, dx, w.to(f32), vr, vi])[:, perm].contiguous()
     return recs, starts
+
+
+def idg_bin_records_multi(grid_shape, p, w, vis_re_mc, vis_im_mc, *,
+                          subgrid: int = 64, support: int = 15):
+    """Multi-channel binning: bin once at the reference channel, update each
+    channel elementwise (:func:`idg_records_for_channel`).
+
+    ``p``/``w`` are at the reference channel, ``vis_re_mc``/``vis_im_mc``
+    ``[nch, n]``.  Unlike :func:`idg_bin_records` the stride assignment is
+    centred: a record's support anchor sits at offset ``[c0, c0 + T)`` in
+    its window, ``c0 = (S − s)//2 − T//2``, so a channel's drift has slack
+    toward both window edges.  One sort orders the geometry and every
+    channel's visibilities together.
+
+    Returns ``(base [6, n] float32 rows (dy, dx, w, cy, cx, live), vis_s
+    [nch, 2, n] float32, starts [n_sub + 1] int32)``: ``cy``/``cx`` are the
+    subgrid centre's offset from the grid centre, ``live`` the records on
+    the grid; excluded records sort past ``starts[-1]``."""
+    geo = tile_geometry(grid_shape, subgrid)
+    if support > geo.T + 1:
+        raise ValueError(f"IDG needs support <= subgrid/2+1; got "
+                         f"s={support}, S={geo.S}")
+    N, Nx = grid_shape
+    S, T, s = geo.S, geo.T, support
+    i32, f32 = torch.int32, torch.float32
+    yc = torch.floor(N // 2 + p[:, 1] * N + 0.5).to(i32)
+    xc = torch.floor(Nx // 2 + p[:, 0] * Nx + 0.5).to(i32)
+    y0 = yc - s // 2
+    x0 = xc - s // 2
+    valid = (y0 > -s) & (y0 < N) & (x0 > -s) & (x0 < Nx)
+    zero = torch.zeros((), dtype=i32, device=p.device)
+    c0 = (S - s) // 2 - T // 2
+    gy = torch.clamp(torch.div(torch.where(valid, y0 + T, zero) - c0, T,
+                               rounding_mode="floor"), 0, geo.nty - 1)
+    gx = torch.clamp(torch.div(torch.where(valid, x0 + T, zero) - c0, T,
+                               rounding_mode="floor"), 0, geo.ntx - 1)
+    t = torch.where(valid, gy * geo.ntx + gx,
+                    torch.full_like(gy, geo.n_sub))
+    posy = (N // 2 + p[:, 1] * float(N) + T).to(f32)
+    posx = (Nx // 2 + p[:, 0] * float(Nx) + T).to(f32)
+    ctry = (gy * T + S // 2).to(f32)
+    ctrx = (gx * T + S // 2).to(f32)
+    base = torch.stack([posy - ctry, posx - ctrx, w.to(f32),
+                        ctry - float(N // 2 + T), ctrx - float(Nx // 2 + T),
+                        valid.to(f32)])
+    vis = torch.where(valid, torch.stack([vis_re_mc, vis_im_mc], 1).to(f32),
+                      torch.zeros((), dtype=f32, device=p.device))
+    perm, starts = _sort_csr(t, geo.n_sub)
+    return (base[:, perm].contiguous(), vis[:, :, perm].contiguous(),
+            starts)
+
+
+def idg_records_for_channel(base, vis_c, ratio, *, subgrid: int = 64,
+                            support: int = 15):
+    """One channel's gridder records from :func:`idg_bin_records_multi`
+    (elementwise, no sort): ``dy_c = r·dy + (r − 1)·cy`` (and ``dx_c``),
+    ``w_c = r·w`` in float32, ``r = f_c/f_ref`` rounded to float32.  A record
+    whose support the channel's drift pushes out of its window
+    (``floor(d + S/2 + 0.5) − s//2 ∉ [0, S − s]``) loses its visibilities, and
+    the live ones among them are counted.
+
+    ``vis_c`` is the channel's ``[2, n]`` slice.  Returns ``(recs [5, n]
+    float32 for idg_grid_from_records, n_masked (0-dim int64))``."""
+    S, s = subgrid, support
+    r = torch.as_tensor(ratio, dtype=torch.float32, device=base.device)
+    dy, dx, w, cy, cx, live = base
+    dy_c = r * dy + (r - 1.0) * cy
+    dx_c = r * dx + (r - 1.0) * cx
+    lo = s // 2 - S / 2 - 0.5
+    hi = S / 2 - s + s // 2 + 0.5
+    ok = (dy_c >= lo) & (dy_c < hi) & (dx_c >= lo) & (dx_c < hi)
+    okf = ok.to(torch.float32) * live
+    n_masked = torch.sum((live > 0) & ~ok)
+    recs = torch.stack([dy_c, dx_c, r * w, vis_c[0] * okf, vis_c[1] * okf])
+    return recs, n_masked
 
 
 def prep_with_order(grid_shape, p, w, *, subgrid: int = 64,

@@ -71,6 +71,8 @@ class PhaseTimer:
         self.enabled = enabled
         self.trace_dir = trace_dir
         self.times: Dict[str, float] = {}
+        # named counts beside the times (e.g. "multichannel/dropped")
+        self.counters: Dict[str, float] = {}
 
     @contextlib.contextmanager
     def phase(self, name: str):

@@ -223,8 +223,8 @@ class TestCLI:
     @pytest.mark.parametrize("argv,rc,msg", [
         (["--mode", "predict", "--idg"], 1, "requires --model"),
         (["--mode", "idg", "--aterms"], 1, "--aterms requires"),
-        (["--mode", "predict", "--model", "m.h5", "--channels", "4"], 2,
-         "not yet ported"),
+        (["--mode", "predict", "--model", "m.h5", "--metrics", "m.jsonl"],
+         2, "not yet ported"),
         (["--mode", "aw", "--idg", "-i", "nowhere"], 1,
          "input file not found"),
         (["--mode", "predict", "--model", "m.h5", "-i", "nowhere"], 1,

@@ -400,6 +400,11 @@ class TestCLI:
                 == j.cli.build_parser().parse_args([]).mode)
         assert cli.build_parser().parse_args(["-old"]).old
 
+    def test_parser_takes_every_reference_flag(self, j):
+        ours = set(cli.build_parser()._option_string_actions)
+        theirs = set(j.cli.build_parser()._option_string_actions)
+        assert theirs <= ours, sorted(theirs - ours)
+
     def test_fused_aw_matches_jax_cli(self, j, data_dir, tmp_path, capsys):
         out = {}
         for name, argv in (

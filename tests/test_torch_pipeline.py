@@ -134,7 +134,7 @@ class TestCLI:
         assert _rel(got, want) < 1e-4
 
     @pytest.mark.parametrize("argv", [["--mode", "conv"],
-                                      ["--channels", "4"],
+                                      ["--gridder", "xla"],
                                       ["--distributed"],
                                       ["--device-phases"]])
     def test_unported_surfaces_exit_cleanly(self, argv, capsys):
@@ -146,6 +146,7 @@ class TestCLI:
     def test_import_loads_no_jax(self):
         code = ("import sys, ska_sdp_tpu_torch.cli, "
                 "ska_sdp_tpu_torch.models.dataset, "
+                "ska_sdp_tpu_torch.models.spectral, "
                 "ska_sdp_tpu_torch.utils.timing, "
                 "ska_sdp_tpu_torch.kernels.idg_tile; "
                 "bad = [m for m in ('jax', 'ska_sdp_tpu', 'h5py') "
