@@ -64,8 +64,10 @@ result line):
     records, at a mid-size 512² shape (nw=4, qpx=4, random bank, records
     beyond the grid's edges), at the reference benchmark's full-size shape
     (2400², ``bench.py``'s 1,048,576 uniform records and NW=32, QPX=8, 15²
-    random bank from numpy seed 0) and at its 4800² shape (θ=0.016, the
-    same records and bank: the fold of the tiled TPU kernels);
+    random bank from numpy seed 0), at its 4800² shape (θ=0.016, the
+    same records and bank: the fold of the tiled TPU kernels), and skewed:
+    262,144 records of that bank all inside one 32² output tile of the
+    scatter (one tile's entries spread over many warps);
 13. w-projection main paths on phase 4's observation with a 32-plane,
     qpx=8, 15² bank (npix_ff=256) for its w range, built on the card by
     ``ops/wkernel``, each with the launch counts reset just before:
@@ -85,7 +87,9 @@ result line):
     same records and tables: grid rel-L2 ≤ 5e-5 (float32 sums in atomic
     order) and the kernel's count of placed records equal to the count of
     valid records, at (a) 512², 16 antennas, nw=4, qpx=4, random bank and
-    A-kernels, records beyond the edges, s=15 and s=7; (b) the reference
+    A-kernels, records beyond the edges, s=15, s=7 and s=32 (m = 64), and
+    s=15 with half the records on one pair (its run cut into many work
+    items); (b) the reference
     benchmark's fused-AW shape (2400², NW=32, QPX=8, 15², 64 antennas,
     ``bench_records``' first 524,288 records, random A-kernels and
     antennas from seed 1); (c) the same records and tables at 4800²
@@ -1025,6 +1029,24 @@ def wproj_phases(torch, dev, card, vd, obs, img_idg, model, truth):
            (n_lg, n_lg), p_b, wbin_b, vis1, grid_lg)
     del grid_lg
 
+    # ---- 12d. skewed: every record in one output tile of the scatter ------
+    n_sk = 1 << 18
+    p_sk = torch.rand((n_sk, 3), device=dev,
+                      generator=torch.Generator(dev).manual_seed(4))
+    p_sk = (p_sk - 0.5) * torch.tensor([12 / shape_b[0], 12 / shape_b[1],
+                                        7000.0], device=dev)
+    wbin_sk = find_closest(centers_b, p_sk[:, 2])
+    nw, qpx, _, gh, gw = bank_b.shape
+    y0, x0, _, _ = wproj.wproj_records(shape_b, qpx, gh, gw, nw * qpx * qpx,
+                                       p_sk, wbin_sk)
+    _, items, _ = wproj.wproj_tile_plan(y0, x0, gh, gw, shape_b)
+    tiles = torch.unique(items[0]).tolist()
+    if len(tiles) != 1:
+        raise AssertionError(f"skewed case spans tiles {tiles}")
+    parity(f"skewed ({shape_b[0]}², the benchmark's bank, {n_sk} records "
+           f"in one {wproj.TILE}² tile: {items.shape[1]} warp windows)",
+           bank_b, shape_b, p_sk, wbin_sk, vis1[:n_sk], grid_b)
+
     # ---- 13. main paths ----------------------------------------------------
     n_vis = vd.vis.shape[0]
     centers, build_bank = w_bank_inputs(torch, obs, dev)
@@ -1227,8 +1249,8 @@ def aw_phases(torch, dev, card, vd, obs, img_w):
         return (rng.standard_normal(shape)
                 + 1j * rng.standard_normal(shape)).astype(np.complex64)
 
-    # ---- 16a. mid-size parity, s = 15 and s = 7 ---------------------------
-    for s in (15, 7):
+    # ---- 16a. mid-size parity, s = 15, 7 and 32; a skewed pair ----------
+    for s, skew in ((15, False), (7, False), (32, False), (15, True)):
         rng = np.random.default_rng(40 + s)
         n_mid = 200_000
         wk, ak, p, wbin, a1, a2, vis = to_dev(
@@ -1237,9 +1259,13 @@ def aw_phases(torch, dev, card, vd, obs, img_w):
             rng.integers(0, 4, n_mid).astype(np.int32),
             rng.integers(0, 16, n_mid).astype(np.int32),
             rng.integers(0, 16, n_mid).astype(np.int32), cplx(rng, n_mid))
+        label = (f"mid (512², s={s}, 16 ant, nw=4, qpx=4, {n_mid} records, "
+                 "|p| ≤ 0.53")
+        if skew:   # half the records on one pair: its run in many items
+            a1[::2], a2[::2] = 3, 5
+            label += f", {n_mid // 2} of them on one pair"
         rec, pt, ws = prep(wk, ak, (512, 512), p, wbin, a1, a2)
-        parity(f"mid (512², s={s}, 16 ant, nw=4, qpx=4, {n_mid} records, "
-               "|p| ≤ 0.53)", rec, pt, ws, vis, (512, 512))
+        parity(label + ")", rec, pt, ws, vis, (512, 512))
 
     # ---- 16b/c. the benchmark's fused-AW shape, and the 4800² fold --------
     # the benchmark's first 524,288 records, as bench.py:726 slices them

@@ -25,6 +25,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_bound: dict[tuple[str, str], tuple] = {}
 build_log: dict[str, str] = {}     # compiler output (ptxas resource use)
 
 
@@ -64,15 +65,19 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def bind(name: str, entry: str, argtypes):
+def bind(name: str, entry: str, argtypes, restype=ctypes.c_int):
     """Build (if needed) and load ``csrc/<name>.cu``; returns the entry
-    point with its ctypes signature (``int`` result: a ``cudaError_t``)
-    and the library's ``<name>_error_string`` function."""
-    lib = load(name)
-    fn = getattr(lib, entry)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    err = getattr(lib, f"{name}_error_string")
-    err.argtypes = [ctypes.c_int]
-    err.restype = ctypes.c_char_p
-    return fn, err
+    point with its ctypes signature (``restype``: by default ``int``, a
+    ``cudaError_t``) and the library's ``<name>_error_string`` function.
+    Bound once per entry point."""
+    key = (name, entry)
+    if key not in _bound:
+        lib = load(name)
+        fn = getattr(lib, entry)
+        fn.argtypes = argtypes
+        fn.restype = restype
+        err = getattr(lib, f"{name}_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        _bound[key] = fn, err
+    return _bound[key]

@@ -11,7 +11,7 @@ tiled ``aw_fused_pallas.py::_kernel`` and the slab placement
 grid or the nant² pair table does not fit in VMEM, while the H100 keeps
 both in device memory.
 
-A record is ``(y0, x0, pid, kidx)`` in input order, no sort:
+A record is ``(y0, x0, pid, kidx)``:
 
     y0 = y − s//2,  x0 = x − s//2           (from ``frac_coords``)
     pid = a1·nant + a2, clamped to [0, nant² − 1]
@@ -26,18 +26,24 @@ its in-bounds cells, with the raw tables
 
 with ``T = _analysis_mat(s, m) @ _synthesis_mat(s, m)`` and ``S =
 _synthesis_mat(s, m)``.  An invalid record has no cell inside
-the grid and adds 0.  On the card the pair table is built only for the
-pairs that occur: ``pid`` is remapped on the device with ``torch.unique``,
-which halves the table and its build at 512 stations (130,816 of 262,144
-pairs).  The TPU's packing (f32-encoded fields, (8, 128) table rows,
-interleaved lanes, padded grid) and its precision tiers are not carried
-over: the kernel computes in complex64 with f32 sums, the reference's
-``exact`` tier.
+the grid and adds 0.  ``S · X · Sᵀ`` is m² times the forward 2-D DFT of
+``X`` at the bins ``(i − s//2) mod m`` (:func:`synthesis_fft`), which is
+how the kernel computes it.  On the card the pair table is built only for
+the pairs that occur: ``pid`` is remapped on the device with
+``torch.unique``, which halves the table and its build at 512 stations
+(130,816 of 262,144 pairs).  The kernel's call then drops the invalid
+records and sorts the rest by pair on the card (:func:`aw_pair_plan` is
+the same plan in PyTorch), so that it reads each pair row once per run of
+a pair instead of once per record.  The TPU's packing (f32-encoded
+fields, (8, 128) table rows, interleaved lanes, padded grid) and its
+precision tiers are not carried over: the kernel computes in complex64
+with f32 sums, the reference's ``exact`` tier.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -48,9 +54,11 @@ from ..ops.coords import frac_coords
 from ..ops.fourier import next_pow2
 from ..ops.gridding import DEFAULT_CHUNK, _patch_cells, convgrid_aw
 from ._build import bind
+from ._plan import binned_items
 
 GRID_KERNEL = "aw_grid"
 MAX_SUPPORT = 32      # the kernel's envelope: m = next_pow2(2s − 1) ≤ 64
+WINDOW = 32           # sorted records a warp of the kernel takes
 _launches = {GRID_KERNEL: 0}
 
 
@@ -131,6 +139,31 @@ def aw_fused_plain(pair_tab: torch.Tensor, w_spec: torch.Tensor,
     return out
 
 
+def synthesis_fft(X: torch.Tensor, s: int) -> torch.Tensor:
+    """``S · X · Sᵀ`` with ``S = _synthesis_mat(s, m)`` for spectra ``X``
+    ``[..., m, m]``, as the kernel computes it: m² times the forward 2-D
+    DFT of ``X`` at the bins ``(i − s//2) mod m``, ``i < s``."""
+    m = X.shape[-1]
+    r = (torch.arange(s, device=X.device) - s // 2) % m
+    return torch.fft.fft2(X)[..., r[:, None], r[None, :]] * (m * m)
+
+
+def aw_pair_plan(records: AWRecords, grid_shape, npair: int,
+                 window: int = WINDOW):
+    """The kernel's work, as it builds it on the card: ``(order, items)``
+    of :func:`_plan.binned_items` with the records' pair rows (``pid``
+    clamped to ``[0, npair − 1]``) as bins and the invalid records (no cell
+    inside the ``grid_shape`` grid) in none.  ``order`` lists the valid
+    records by pair, in input order within a pair; each item is (pair row,
+    first, end): a run of one pair inside a warp's window."""
+    H, W = grid_shape
+    s = records.support
+    y0, x0 = records.y0, records.x0
+    valid = (y0 > -s) & (y0 < H) & (x0 > -s) & (x0 < W)
+    pid = records.pid.to(torch.int32).clamp(0, npair - 1)
+    return binned_items(torch.where(valid, pid, npair), npair, window)
+
+
 def _check(pair_tab, w_spec, records, vis, grid):
     """The kernel takes complex64 data, ``[rows, m, m]`` tables and every
     input on one device."""
@@ -155,33 +188,44 @@ def _check(pair_tab, w_spec, records, vis, grid):
                          f"{records.support}")
 
 
+@functools.lru_cache(maxsize=64)
+def _scratch_bytes(n: int, npair: int) -> int:
+    """Bytes of scratch ``csrc/aw_grid.cu`` needs (its keys and sort)."""
+    size, _ = bind(GRID_KERNEL, "aw_grid_scratch_bytes",
+                   [ctypes.c_longlong, ctypes.c_int], ctypes.c_longlong)
+    return max(size(n, npair), 1)
+
+
 def _launch(pair_tab, w_spec, records: AWRecords, vis, grid, n_valid=None):
-    """Launch ``csrc/aw_grid.cu`` on the current stream, accumulating into
-    ``grid`` (and the count of placed records into the int32 ``n_valid``
-    when given); raises on a refused launch."""
+    """Launch ``csrc/aw_grid.cu`` on the current stream (its keys, its sort
+    of the records by pair and the gridder, with scratch from here),
+    accumulating into ``grid`` (and the count of placed records into the
+    int32 ``n_valid`` when given); raises on a refused launch."""
     s, m = records.support, pair_tab.shape[-1]
     H, W = grid.shape
+    npair = pair_tab.shape[0]
     # a lazily conjugated view would hand the kernel the unconjugated data
     pair_tab = pair_tab.resolve_conj().contiguous()
     w_spec = w_spec.resolve_conj().contiguous()
     vis = vis.resolve_conj().contiguous()
-    sconj = torch.as_tensor(_synthesis_mat(s, m).conj(), device=vis.device
-                            ).to(torch.complex64).contiguous()
     recs = torch.stack([records.y0, records.x0, records.pid,
                         records.kidx]).to(torch.int32).contiguous()
     for t in (pair_tab, w_spec):
         if t.data_ptr() % 16:
             raise ValueError("tables must be 16-byte aligned")
-    vp, ci = ctypes.c_void_p, ctypes.c_int
+    vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fn, err = bind(GRID_KERNEL, GRID_KERNEL,
-                   [vp, ci, vp, ci, vp, ci, ci, vp, ctypes.c_longlong, vp,
-                    vp, ci, ci, vp, vp])
+                   [vp, ci, vp, ci, ci, ci, vp, vp, cll, vp, cll, vp, ci, ci,
+                    vp, vp])
+    n = recs.shape[1]
+    scratch = torch.empty(_scratch_bytes(n, npair), dtype=torch.uint8,
+                          device=vis.device)
     dev = vis.device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(pair_tab.data_ptr(), pair_tab.shape[0], w_spec.data_ptr(),
-                w_spec.shape[0], sconj.data_ptr(), s, m, recs.data_ptr(),
-                recs.shape[1], vis.data_ptr(), grid.data_ptr(), H, W,
+        rc = fn(pair_tab.data_ptr(), npair, w_spec.data_ptr(),
+                w_spec.shape[0], s, m, recs.data_ptr(), vis.data_ptr(), n,
+                scratch.data_ptr(), scratch.numel(), grid.data_ptr(), H, W,
                 None if n_valid is None else n_valid.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"{GRID_KERNEL} launch failed: "

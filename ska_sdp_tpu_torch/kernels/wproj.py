@@ -7,14 +7,19 @@ kernels and the wrappers of the CUDA kernels ``csrc/wproj_grid.cu`` and
 ``wproj_pallas.py::_kernel`` and ``wproj_degrid_pallas.py::_kernel`` fold
 into them because the grid lives in device memory).
 
-A record is ``(y0, x0, kidx)`` in input order, no sort:
+A record is ``(y0, x0, kidx)``:
 
     y0 = y − gh//2,  x0 = x − gw//2                 (from ``frac_coords``)
     kidx = wbin·qpx² + yf·qpx + xf, clamped to [0, nk − 1]
     valid = (y0 > −gh) & (y0 < H) & (x0 > −gw) & (x0 < W)
 
 An invalid record has no cell inside the grid and contributes 0 both
-ways.  The TPU's packing (f32-encoded fields, crop margins, interleaved
+ways.  The gather takes the records in input order, one warp each.  The
+scatter's call first bins each valid record into every ``TILE``×``TILE``
+output tile its in-grid cells touch and sorts the entries by tile on the
+card (:func:`wproj_tile_plan` is the same plan in PyTorch), so that its
+warps accumulate a tile in shared memory and add it to the grid once per
+run.  The TPU's packing (f32-encoded fields, crop margins, interleaved
 lanes) is not carried over.  The wrappers launch the kernels for CUDA
 tensors and use the plain versions of ``ops/gridding.py`` only for CPU
 tensors; they never fall back.  The kernels compute in complex64.
@@ -23,15 +28,19 @@ tensors; they never fall back.  The kernels compute in complex64.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from ..ops.coords import frac_coords
 from ..ops.gridding import convgrid_wproj, degrid_wproj
 from ._build import bind
+from ._plan import binned_items
 
 GRID_KERNEL = "wproj_grid"
 DEGRID_KERNEL = "wproj_degrid"
+TILE = 32           # the scatter's output tile, T×T cells (csrc kTile)
+WINDOW = 256        # sorted (tile, record) entries a warp of the scatter takes
 _launches = {GRID_KERNEL: 0, DEGRID_KERNEL: 0}
 
 
@@ -61,6 +70,34 @@ def wproj_records(grid_shape, qpx: int, gh: int, gw: int, nk: int,
     return y0, x0, kidx, valid
 
 
+def wproj_tile_plan(y0, x0, gh: int, gw: int, grid_shape,
+                    window: int = WINDOW):
+    """The scatter's work, as it builds it on the card: ``(entries, items,
+    ntx)``.  Each record has one slot for every ``TILE``×``TILE`` tile
+    (row-major, ``ntx`` across) its patch may touch, ``(gh + TILE −
+    2)//TILE + 1`` a side, binned to the tile where its cells inside the
+    ``grid_shape`` grid touch it and to none elsewhere; ``entries`` lists
+    the record of each slot by tile, in input order within a tile, the
+    unbinned last, and ``items`` the (tile, first, end) runs of
+    :func:`_plan.binned_items`."""
+    H, W = grid_shape
+    nty, ntx = -(-H // TILE), -(-W // TILE)
+    valid = (y0 > -gh) & (y0 < H) & (x0 > -gw) & (x0 < W)
+    spans = []
+    for lo, size, n in ((y0, gh, H), (x0, gw, W)):
+        first = lo.clamp(min=0) // TILE
+        last = ((lo + size).clamp(max=n) - 1) // TILE
+        t = first[:, None] + torch.arange((size + TILE - 2) // TILE + 1,
+                                          device=lo.device, dtype=lo.dtype)
+        spans.append((t, t <= last[:, None]))
+    (ty, oky), (tx, okx) = spans
+    ok = oky[:, :, None] & okx[:, None, :] & valid[:, None, None]
+    key = torch.where(ok, ty[:, :, None] * ntx + tx[:, None, :], nty * ntx)
+    order, items = binned_items(key.reshape(-1), nty * ntx, window)
+    entries = (order // (ok.shape[1] * ok.shape[2])).to(torch.int32)
+    return entries, items, ntx
+
+
 def _check(bank, grid, p, wbin, vis=None):
     """The kernels take every input on one device, complex64 data, a 5-d
     bank and a 2-d grid."""
@@ -77,31 +114,69 @@ def _check(bank, grid, p, wbin, vis=None):
                          "[H, W]")
 
 
-def _launch(kernel: str, bank, grid_shape, p, wbin, src, dst):
-    """Pack the records and launch ``csrc/<kernel>.cu`` on the current
-    stream, reading ``src`` (visibilities or grid) and writing ``dst``;
-    raises on a refused launch."""
-    nw, qpx, _, gh, gw = bank.shape
-    nk = nw * qpx * qpx
-    H, W = grid_shape
-    y0, x0, kidx, _ = wproj_records((H, W), qpx, gh, gw, nk, p, wbin)
-    recs = torch.stack([y0, x0, kidx]).contiguous()
-    # a lazily conjugated view would hand the kernel the unconjugated data
-    bank = bank.resolve_conj().reshape(nk, gh, gw).contiguous()
-    src = src.resolve_conj().contiguous()
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn, err = bind(kernel, kernel, [vp, ci, ci, ci, vp, ctypes.c_longlong,
-                                    vp, vp, ci, ci, vp])
-    dev = bank.device
+def _run(kernel: str, argtypes, *args) -> None:
+    """Launch ``csrc/<kernel>.cu`` on the current stream of the first
+    argument's device; raises on a refused launch."""
+    fn, err = bind(kernel, kernel, argtypes)
+    dev = args[0].device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(bank.data_ptr(), nk, gh, gw, recs.data_ptr(), recs.shape[1],
-                src.data_ptr(), dst.data_ptr(), H, W, stream)
+        rc = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
+                  for a in args), stream)
     if rc != 0:
         raise RuntimeError(f"{kernel} launch failed: {err(rc).decode()} "
                            f"({rc})")
     _launches[kernel] += 1
-    return dst
+
+
+@functools.lru_cache(maxsize=64)
+def _scratch_bytes(n: int, gh: int, gw: int, H: int, W: int) -> int:
+    """Bytes of scratch ``csrc/wproj_grid.cu`` needs (its keys and sort)."""
+    cll, ci = ctypes.c_longlong, ctypes.c_int
+    size, _ = bind(GRID_KERNEL, "wproj_grid_scratch_bytes",
+                   [cll, ci, ci, ci, ci], cll)
+    return max(size(n, gh, gw, H, W), 1)
+
+
+def _launch_grid(bank, grid_shape, p, wbin, vis, grid):
+    """Launch ``csrc/wproj_grid.cu`` (its records and keys, its sort of
+    the records by tile and the scatter, with scratch from here), adding
+    into ``grid``."""
+    H, W = grid_shape
+    nw, qpx, _, gh, gw = bank.shape
+    # a lazily conjugated view would hand the kernel the unconjugated data
+    bank = bank.resolve_conj().contiguous()
+    if p.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"p must be float32 or float64 (got {p.dtype})")
+    p = p.contiguous()
+    n = p.shape[0]
+    vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    scratch = torch.empty(_scratch_bytes(n, gh, gw, H, W),
+                          dtype=torch.uint8, device=grid.device)
+    _run(GRID_KERNEL, [vp, ci, ci, ci, ci, vp, ci, vp, cll, vp, vp, cll, vp,
+                       ci, ci, vp],
+         bank, nw, qpx, gh, gw, p, int(p.dtype == torch.float64),
+         wbin.to(torch.int32).contiguous(), n,
+         vis.resolve_conj().contiguous(), scratch, scratch.numel(), grid, H,
+         W)
+    return grid
+
+
+def _launch_degrid(bank, grid, p, wbin, out):
+    """Launch ``csrc/wproj_degrid.cu``, writing ``out``."""
+    H, W = grid.shape
+    nw, qpx, _, gh, gw = bank.shape
+    nk = nw * qpx * qpx
+    y0, x0, kidx, _ = wproj_records((H, W), qpx, gh, gw, nk, p, wbin)
+    recs = torch.stack([y0, x0, kidx]).contiguous()
+    # a lazily conjugated view would hand the kernel the unconjugated data
+    bank = bank.resolve_conj().reshape(nk, gh, gw).contiguous()
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    _run(DEGRID_KERNEL, [vp, ci, ci, ci, vp, ctypes.c_longlong, vp, vp, ci,
+                         ci, vp],
+         bank, nk, gh, gw, recs, recs.shape[1],
+         grid.resolve_conj().contiguous(), out, H, W)
+    return out
 
 
 def wproj_gridder(bank_conj: torch.Tensor, grid_shape, p: torch.Tensor,
@@ -112,8 +187,10 @@ def wproj_gridder(bank_conj: torch.Tensor, grid_shape, p: torch.Tensor,
     ``p`` ``[n, 3]`` and bank planes ``wbin`` ``[n]``, added to ``init``
     (left unchanged) when given.
 
-    CUDA tensors launch ``csrc/wproj_grid.cu``, which accumulates with
-    atomics into a zero grid or a copy of ``init``; CPU tensors take
+    CUDA tensors launch ``csrc/wproj_grid.cu``, which bins the records by
+    output tile (:func:`wproj_tile_plan`), sums each tile in shared memory
+    and adds it with atomics into a zero grid or a copy of ``init``; CPU
+    tensors take
     :func:`ops.gridding.convgrid_wproj` in chunks of ``chunk``.  One
     kernel serves every support."""
     if vis.is_cuda:
@@ -122,7 +199,7 @@ def wproj_gridder(bank_conj: torch.Tensor, grid_shape, p: torch.Tensor,
                else init.resolve_conj().clone(
                    memory_format=torch.contiguous_format))
         _check(bank_conj, out, p, wbin, vis)
-        return _launch(GRID_KERNEL, bank_conj, grid_shape, p, wbin, vis, out)
+        return _launch_grid(bank_conj, grid_shape, p, wbin, vis, out)
     if vis.device.type == "cpu":
         guv = (torch.zeros(grid_shape, dtype=vis.dtype) if init is None
                else init)
@@ -143,7 +220,7 @@ def wproj_degridder(bank: torch.Tensor, grid: torch.Tensor, p: torch.Tensor,
         _check(bank, grid, p, wbin)
         out = torch.empty((p.shape[0],), dtype=torch.complex64,
                           device=grid.device)
-        return _launch(DEGRID_KERNEL, bank, grid.shape, p, wbin, grid, out)
+        return _launch_degrid(bank, grid, p, wbin, out)
     if grid.device.type == "cpu":
         return degrid_wproj(bank, grid, p, wbin, chunk=chunk)
     raise ValueError(f"no w-projection degridder for device {grid.device}")

@@ -20,7 +20,12 @@ Bounds:
   CUDA kernel, so agreeing with all three is the CPU half of the fold's
   evidence;
 * 1e-8 (float64) and 1e-4 (float32): ``_aw_pipeline`` against the JAX
-  ``_aw_pipeline``; 1e-4 over the central 75% for the CLI.
+  ``_aw_pipeline``; 1e-4 over the central 75% for the CLI;
+* 1e-10 (complex128): ``synthesis_fft``, the FFT shape the kernel
+  computes, against the dense ``_sandwich(S, X)`` for every m of the
+  envelope; exact: the pair plan's integers against a numpy brute force;
+  1e-12 (complex128): a plain accumulation in plan order against
+  ``aw_fused_plain``.
 
 On the CPU the wrappers take the plain versions; the CUDA kernel is held
 to ``aw_fused_plain`` by the ``cuda``-marked tests (rel-L2 ≤ 5e-5: float32
@@ -278,6 +283,93 @@ class TestRecordsAndTables:
         assert _rel(via.numpy(), (got + 1).numpy()) <= 1e-12
 
 
+def _brute_pair_plan(rec, shape, npair, window):
+    """The kernel's work by brute force: the valid records by pair in
+    input order, and the (pair, first, end) runs of one pair inside each
+    window of ``window`` positions."""
+    H, W = shape
+    s = rec.support
+    y0, x0 = rec.y0.numpy(), rec.x0.numpy()
+    valid = (y0 > -s) & (y0 < H) & (x0 > -s) & (x0 < W)
+    key = np.where(valid, np.clip(rec.pid.numpy(), 0, npair - 1), npair)
+    order = np.argsort(key, kind="stable")
+    skey = key[order]
+    items = []
+    for w in range(0, len(key), window):
+        for e in range(w, min(w + window, len(key))):
+            if skey[e] == npair:
+                break
+            if e == w or skey[e] != skey[e - 1]:
+                items.append([int(skey[e]), e, e + 1])
+            else:
+                items[-1][2] = e + 1
+    return order[:valid.sum()], [tuple(i) for i in items]
+
+
+class TestPairPlan:
+    """The algebra and the work plan of ``csrc/aw_grid.cu``, on the CPU."""
+
+    @pytest.mark.parametrize("s", [1, 2, 4, 8, 15, 16, 32])
+    def test_synthesis_fft_equals_the_dense_sandwich(self, s):
+        m = next_pow2(2 * s - 1)
+        X = torch.as_tensor(_cplx(np.random.default_rng(s), (3, m, m)))
+        want = conv._sandwich(conv._synthesis_mat(s, m), X)
+        got = aw_fused.synthesis_fft(X, s)
+        assert got.shape == want.shape == (3, s, s)
+        assert _rel(got.numpy(), want.numpy()) <= 1e-10
+
+    @pytest.mark.parametrize("window", [1, 5, aw_fused.WINDOW])
+    @pytest.mark.parametrize("crowd", [False, True])
+    def test_plan_matches_brute_force(self, window, crowd):
+        """Stable order, every valid record in exactly one item, the
+        invalid ones in none, no item longer than a window; ``crowd`` puts
+        a third of the records on one pair."""
+        rng = np.random.default_rng(window)
+        pr = problem(rng, 700, nant=5, lim=0.6)
+        if crowd:
+            pr.a1[::3] = pr.a2[::3] = 2
+        shape = (120, 150)
+        rec, pt, _, _ = _records_tables(pr, shape, remap=True)
+        npair = pt.shape[0]
+        order, items = aw_fused.aw_pair_plan(rec, shape, npair, window)
+        want_order, want_items = _brute_pair_plan(rec, shape, npair, window)
+        n_valid = len(want_order)
+        assert 0 < n_valid < 700
+        np.testing.assert_array_equal(order[:n_valid].numpy(), want_order)
+        assert set(order[n_valid:].tolist()) == set(
+            np.flatnonzero(~rec.valid.numpy()).tolist())
+        assert items.dtype == torch.int32
+        assert [tuple(c) for c in items.T.tolist()] == want_items
+        covered = np.concatenate([np.arange(f, e) for _, f, e in want_items])
+        np.testing.assert_array_equal(covered, np.arange(n_valid))
+        if crowd:
+            assert max(e - f for _, f, e in want_items) == window
+
+    @pytest.mark.parametrize("s", [7, 15])
+    def test_plan_order_accumulation_matches_plain(self, s):
+        """The kernel's arithmetic in plan order (pair row from the item,
+        FFT-shaped sandwich, conjugate, visibility) gives the plain grid."""
+        rng = np.random.default_rng(30 + s)
+        pr = problem(rng, 3000, nant=8, s=s, lim=0.53)
+        shape = (512, 512)
+        rec, pt, ws, vis = _records_tables(pr, shape, remap=True)
+        order, items = aw_fused.aw_pair_plan(rec, shape, pt.shape[0])
+        got = torch.zeros(shape, dtype=vis.dtype)
+        for pair, first, end in items.T.tolist():
+            b = order[first:end]
+            Z = aw_fused.synthesis_fft(
+                pt[pair] * ws[rec.kidx[b].long()], s)
+            y, x = torch.broadcast_tensors(
+                rec.y0[b, None, None] + torch.arange(s)[:, None],
+                rec.x0[b, None, None] + torch.arange(s))
+            inb = (y >= 0) & (y < shape[0]) & (x >= 0) & (x < shape[1])
+            got.index_put_((y[inb], x[inb]),
+                           (vis[b, None, None] * Z.conj())[inb],
+                           accumulate=True)
+        want = aw_fused.aw_fused_plain(pt, ws, rec, vis, shape)
+        assert _rel(got.numpy(), want.numpy()) <= 1e-12
+
+
 class TestPallasFold:
     """``aw_fused_plain`` against each TPU kernel the CUDA kernel stands
     for, in interpret mode at the ``exact`` tier."""
@@ -445,6 +537,19 @@ class TestCudaKernel:
         rng = np.random.default_rng(20 + s)
         pr = problem(rng, 20000, nant=16, nw=4, qpx=4, s=s,
                      dtype=np.complex64)
+        self._card_parity(pr, cuda_device)
+
+    def test_one_pair_with_thousands_of_records_on_card(self, cuda_device):
+        """Half the records on one pair: its run is cut into many work
+        items that stage the same pair row."""
+        rng = np.random.default_rng(34)
+        pr = problem(rng, 20000, nant=16, nw=4, qpx=4, s=15,
+                     dtype=np.complex64)
+        pr.a1[::2], pr.a2[::2] = 3, 5
+        self._card_parity(pr, cuda_device)
+
+    @staticmethod
+    def _card_parity(pr, cuda_device):
         shape = (512, 512)
         rec, pt, ws, vis = _records_tables(pr, shape, cuda_device,
                                            remap=True)

@@ -10,6 +10,9 @@ Bounds:
   JAX ``convgrid_wproj`` and ``degrid_wproj``; the adjoint identity
   ``<G, grid(v)> = <degrid(G), v>`` with the same bank on both sides (the
   gather conjugates it);
+* exact: the scatter's tile binning against a numpy enumeration of each
+  record's in-grid cells; 1e-12 (complex128): a plain accumulation in tile
+  order against ``convgrid_wproj``;
 * atol 2e-4, rtol 1e-4 (float32, the JAX tests' own bound): the plain
   versions against the resident and the tiled Pallas kernels, including
   out-of-bounds edge records and odd and non-square grids.  The tiled
@@ -273,6 +276,85 @@ class TestPlainVsJax:
         assert torch.equal(init, before)
 
 
+def _bank(rng, gh, gw, nw=2, qpx=4, dtype=np.complex128):
+    return _cplx(rng, (nw, qpx, qpx, gh, gw), dtype)
+
+
+class TestTilePlan:
+    """The tile binning and the tile-order sum of ``csrc/wproj_grid.cu``,
+    on the CPU."""
+
+    @pytest.mark.parametrize("shape,gh,gw,edge", [
+        ((256, 256), 15, 15, True), ((100, 70), 7, 9, False),
+        ((130, 97), 40, 35, True), ((64, 64), 1, 1, True)])
+    def test_binning_matches_cell_enumeration(self, shape, gh, gw, edge):
+        """Each valid record sits in exactly the tiles that hold its
+        in-grid cells (so their union is its cells), once each, in input
+        order within a tile, no item above the cap; the invalid records
+        in none."""
+        H, W = shape
+        T = wproj.TILE
+        rng = np.random.default_rng(gh * gw)
+        pr = problem(rng, 400, qpx=4, edge=edge)
+        y0, x0, _, valid = wproj.wproj_records(shape, 4, gh, gw, 32,
+                                               _t(pr.p), _t(pr.wbin))
+        window = 7
+        entries, items, ntx = wproj.wproj_tile_plan(y0, x0, gh, gw, shape,
+                                                    window)
+        assert ntx == -(-W // T) and entries.dtype == torch.int32
+        slots = ((gh + T - 2) // T + 1) * ((gw + T - 2) // T + 1)
+        assert entries.shape == (400 * slots,)
+        got = {}
+        for tile, first, end in items.T.tolist():
+            assert 0 < end - first <= window
+            assert first // window == (end - 1) // window
+            got.setdefault(tile, []).extend(entries[first:end].tolist())
+        want = {}
+        y0, x0 = y0.numpy(), x0.numpy()
+        for r in np.flatnonzero(valid.numpy()):
+            ys = np.arange(y0[r], y0[r] + gh)
+            xs = np.arange(x0[r], x0[r] + gw)
+            ys, xs = ys[(ys >= 0) & (ys < H)], xs[(xs >= 0) & (xs < W)]
+            assert ys.size and xs.size
+            for t in np.unique((ys[:, None] // T) * ntx + xs[None] // T):
+                want.setdefault(int(t), []).append(int(r))
+        assert got == want and valid.any()
+        if edge and gh < 20:   # records wholly past the edges are in none
+            assert (~valid).any()
+
+    @pytest.mark.parametrize("gh,gw", [(15, 15), (7, 9), (40, 35)])
+    def test_tile_order_accumulation_matches_plain(self, gh, gw):
+        """Each tile's sum of its entries' cells, added to the grid once,
+        gives ``convgrid_wproj``'s grid."""
+        shape = (512, 512)
+        rng = np.random.default_rng(50 + gh)
+        pr = problem(rng, 3000, edge=False, lo=-0.53, hi=0.53)
+        bank = _t(_bank(rng, gh, gw))
+        p, wbin, vis = _t(pr.p), _t(pr.wbin), _t(pr.vis)
+        y0, x0, kidx, _ = wproj.wproj_records(shape, 4, gh, gw, 32, p, wbin)
+        entries, items, ntx = wproj.wproj_tile_plan(y0, x0, gh, gw, shape,
+                                                    64)
+        T = wproj.TILE
+        taps = bank.reshape(32, gh, gw)
+        got = torch.zeros(shape, dtype=torch.complex128)
+        for tile, first, end in items.T.tolist():
+            acc = torch.zeros((T, T), dtype=torch.complex128)
+            ty, tx = (tile // ntx) * T, (tile % ntx) * T
+            for r in entries[first:end].tolist():
+                ys = torch.arange(gh) + y0[r]
+                xs = torch.arange(gw) + x0[r]
+                iy = (ys >= ty) & (ys < min(ty + T, shape[0]))
+                ix = (xs >= tx) & (xs < min(tx + T, shape[1]))
+                acc[(ys[iy] - ty)[:, None], (xs[ix] - tx)[None]] += (
+                    vis[r] * taps[kidx[r]][iy][:, ix])
+            h, w = min(T, shape[0] - ty), min(T, shape[1] - tx)
+            got[ty:ty + h, tx:tx + w] += acc[:h, :w]
+        want = convgrid_wproj(bank, torch.zeros(shape,
+                                                dtype=torch.complex128),
+                              p, wbin, vis)
+        assert _rel(got.numpy(), want.numpy()) <= 1e-12
+
+
 class TestPallasInterpret:
     """The port's plain versions against the reference's TPU kernels in
     interpret mode, float32."""
@@ -372,6 +454,63 @@ class TestCudaKernels:
         valid = wproj.wproj_records(shape, 4, s, s, 64, args[1],
                                     args[2])[3]
         assert torch.all(v[~valid] == 0)
+
+    @staticmethod
+    def _scatter_parity(device, bank, shape, p, wbin, vis):
+        args = [_t(x, device) for x in (bank, p, wbin, vis)]
+        wproj.reset_launch_count()
+        g = kernels.wproj_gridder(args[0], shape, *args[1:])
+        torch.cuda.synchronize()
+        assert wproj.launch_count(wproj.GRID_KERNEL) == 1
+        want = convgrid_wproj(args[0], torch.zeros(
+            shape, dtype=torch.complex64, device=device), *args[1:])
+        assert _rel(g.cpu().numpy(), want.cpu().numpy()) < CUDA_TOL
+
+    @pytest.mark.parametrize("gh,gw", [(15, 15), (7, 9), (40, 36)])
+    def test_scatter_supports_on_card(self, cuda_device, gh, gw):
+        """15², a non-square patch and one wider than the scatter's tile,
+        with records past the edges."""
+        rng = np.random.default_rng(gh + gw)
+        pr = problem(rng, 20000, nw=4, qpx=4, lo=-0.55, hi=0.55,
+                     dtype=np.complex64)
+        bank = _bank(rng, gh, gw, nw=4, qpx=4, dtype=np.complex64)
+        self._scatter_parity(cuda_device, bank, (512, 512), pr.p, pr.wbin,
+                             pr.vis)
+
+    @pytest.mark.parametrize("dtype", [np.float32, np.float64])
+    def test_scatter_at_cell_boundaries_on_card(self, cuda_device, dtype):
+        """The scatter places its records itself (``frac_coord`` in p's
+        type): at cell edges, half cells and the fraction rounding points,
+        and one ulp either side of each, every record lands where the
+        plain scatter puts it."""
+        H, W, qpx = 255, 383, 4
+        ks = np.arange(-6, 7)
+        base = np.concatenate([(ks + off) / n for n in (H, W)
+                               for off in (0.0, 0.5, -0.5 / qpx, 0.5 / qpx,
+                                           0.25)]).astype(dtype)
+        vals = np.concatenate([base, np.nextafter(base, dtype(1)),
+                               np.nextafter(base, dtype(-1))])
+        p = np.stack([vals, vals[::-1], np.zeros_like(vals)], 1)
+        rng = np.random.default_rng(15)
+        bank = _bank(rng, 7, 7, nw=1, qpx=qpx, dtype=np.complex64)
+        self._scatter_parity(cuda_device, bank, (H, W), p,
+                             np.zeros(len(vals), np.int32),
+                             _cplx(rng, len(vals), np.complex64))
+
+    def test_scatter_one_tile_on_card(self, cuda_device):
+        """Every record in one output tile: one tile's run cut into many
+        items, their sums added to the same cells."""
+        rng = np.random.default_rng(14)
+        pr = problem(rng, 20000, nw=4, qpx=4, s=7, lo=8 / 512, hi=20 / 512,
+                     dtype=np.complex64)
+        shape = (512, 512)
+        y0, x0, _, _ = wproj.wproj_records(shape, 4, 7, 7, 64, _t(pr.p),
+                                           _t(pr.wbin))
+        _, items, _ = wproj.wproj_tile_plan(y0, x0, 7, 7, shape)
+        assert len(set(items[0].tolist())) == 1
+        assert items.shape[1] == -(-20000 // wproj.WINDOW)
+        self._scatter_parity(cuda_device, pr.bank, shape, pr.p, pr.wbin,
+                             pr.vis)
 
     def test_adjoint_on_card(self, cuda_device):
         rng = np.random.default_rng(12)
