@@ -19,8 +19,10 @@ result line):
    started together; print the gridder's build time and ptxas resource use;
 3. gridder parity on the card against the plain PyTorch version on the
    same inputs: a mid-size IDG-AW case (512² grid, S=64, 16 antennas of
-   track data, random screens) and the full-size unit-screen records of the
-   main path; grid rel-L2 ≤ 5e-5 and equal ``n_dropped``;
+   track data, random screens), the same records at S=32 (support 7) and
+   S=128, a hand-made table with one run of 25,000 records among 500 short
+   ones, empty and sentinel entries, and the full-size unit-screen records
+   of the main path; grid rel-L2 ≤ 5e-5 and equal ``n_dropped``;
 4. IDG imaging main path: a synthetic SKA1-Low observation (512 stations,
    8 times, seed 1234: 1,046,528 visibilities) imaged by ``idg_image`` on a
    2400² grid (θ=0.008, lam=300000, S=64, support 15, β=12) with the launch
@@ -29,7 +31,9 @@ result line):
    window above 0.25·max, and image rel-L2 ≤ 1e-4 over the central 75%
    against the same pipeline with the plain gridder on the card;
 5. gridder times (CUDA events, median of 7 after a warm-up): the kernel,
-   its plain version, the run prep, and ``idg_image`` end to end;
+   its plain version, the run prep, and ``idg_image`` end to end; the run
+   table's longest and mean run, and the gridder's two bounds (f32 on the
+   CUDA cores, and the tensor-core bound of its split-fp16 products);
 6. build: the degridder's build time and ptxas resource use;
 7. degridder parity on the card against its plain version: the mid-size
    IDG-AW case of phase 3 degridding a random grid, and the full-size
@@ -153,13 +157,17 @@ result line):
     Earth-rotation tracks, whose runs outgrow the reference's run bound;
 25. cube times (CUDA events, median of 7 after a warm-up): each cube end to
     end in channel-visibilities per second, the multi preps, and one
-    channel's kernel, with the kernel's bound for the 8 channels.
+    channel's kernel, with the kernel's bound for the 8 channels (the
+    streamed gridder's tensor-core bound beside it).
 
 The line before last is the ``nvidia-smi`` name and power limit, the one
 before it a JSON summary of the kernels (``replaces`` lists each TPU
 kernel the CUDA kernel stands for, folds included; ``bound_ms`` is the
 larger of the f32 operations over 67 TFLOP/s and the bytes over 3.35 TB/s,
-from this run's inputs); the last line is
+from this run's inputs, and for ``idg_grid_stream``, whose products run on
+the tensor cores, the larger of those products over 989 TFLOP/s, its f32
+phase work over 67 TFLOP/s and the bytes, each run's sandwich placed on
+whichever unit finishes soonest); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -184,6 +192,7 @@ THETA, LAM, SUBGRID, SUPPORT, BETA = 0.008, 300000, 64, 15, 12.0
 KERNEL_TOL = 5e-5        # the reference's between-route bound
 ADJOINT_TOL = 1e-5       # <G, grid(v)> against <degrid(G), v>, float32
 F32_FLOPS = 67e12        # H100 SXM peak, float32 outside the tensor cores
+BF16_FLOPS = 989e12      # H100 SXM dense bf16 / fp16 tensor-core peak
 HBM_BPS = 3.35e12        # H100 SXM device-memory rate
 IMAGE_TOL = 1e-4         # image contract over the central 75%
 TRUTH_TOL = 2e-4         # predict vs direct DFT (the reference's IDG bound)
@@ -412,6 +421,126 @@ def aw_cube_inputs():
                    float(freqs[0]), vis, freqs)
 
 
+def cube_group_inputs(torch, dev, vd, group):
+    """A cube channel group's weighted, mirrored inputs as the spectral
+    drivers form them: ``(uvw1, vis1 [nch, n], r0, drift)``, ``r0`` the
+    first channel's frequency over the group's reference."""
+    from ska_sdp_tpu_torch.models import spectral as sp
+
+    i, j, f_ref, drift = group
+    uvw = torch.as_tensor(np.asarray(vd.uvw, np.float32), device=dev)
+    vis = torch.as_tensor(np.ascontiguousarray(
+        vd.vis_chan[:, i:j], np.complex64), device=dev).T.contiguous()
+    rat = torch.as_tensor((vd.frequencies[i:j] / f_ref).astype(np.float32),
+                          device=dev)
+    uvw1, vis1 = sp._group_inputs(uvw, f_ref, rat, vis, theta=THETA,
+                                  lam=LAM, exact=False)
+    return uvw1, vis1, float(rat[0]), drift
+
+
+def cube_channel_prep(torch, dev, vd, group, ak=None):
+    """Phase 25's multi prep of a cube's channel group at S=64: the IDG
+    prep with unit screens, or with A-kernels ``ak`` the IDG-AW cube
+    raster's ordered prep, pair-major.  Returns ``(prep, r0, screens)``;
+    ``prep()`` runs ``idg_aw_run_records_multi``."""
+    from ska_sdp_tpu_torch.kernels import idg_aw_records as awr
+    from ska_sdp_tpu_torch.models import dataset as ds
+    from ska_sdp_tpu_torch.models import spectral as sp
+    from ska_sdp_tpu_torch.types import SINGLE
+
+    S = SUBGRID
+    n = int(round(THETA * LAM))
+    n_c = vd.uvw.shape[0]
+    uvw1, vis1, r0, drift = cube_group_inputs(torch, dev, vd, group)
+    if ak is not None:
+        layout = ds._detect_time_major_layout(vd.antenna1, vd.antenna2,
+                                              vd.time, n_c)
+        a1, a2 = (sp._pair_major(torch.as_tensor(a.astype(np.int32),
+                                                 device=dev), layout)
+                  for a in (vd.antenna1, vd.antenna2))
+        uvw1 = sp._pair_major(uvw1, layout)
+        vis1 = sp._pair_major(vis1, layout, axis=1)
+        scr = ds._aw_screens(ak, S, THETA, LAM, None, SINGLE, dev)
+        mr = 8 * int(np.unique(vd.antenna1 * 64 + vd.antenna2).size) \
+            + n_c // 128 + 64
+    else:
+        a1 = a2 = torch.zeros((n_c,), dtype=torch.int32, device=dev)
+        scr = torch.ones((1, S, S), dtype=torch.complex64, device=dev)
+        tc = max(2 * (S // 2 - SUPPORT // 2 - 12 - drift) - 2, 8)
+        mr = ((n + 2 * S) // tc + 2) ** 2 + 64
+
+    def prep():
+        return awr.idg_aw_run_records_multi(
+            (n, n), uvw1 / LAM, a1, a2, uvw1[:, 2], vis1.real, vis1.imag,
+            subgrid=S, support=SUPPORT, max_runs=mr, drift_cells=drift,
+            ordered=ak is not None)
+
+    return prep, r0, scr
+
+
+def long_run_table(torch, dev, shape, nant: int, seed: int):
+    """Phase 3c's run table at S=64 on ``shape``: one run of 25,000 random
+    records among 500 of 1–39, a fifth of the entries empty, a tenth with
+    the prep's sentinel pair id (clamped by the kernel), 200 trailing empty
+    entries; random origins and pair ids.  Returns the gridder's first
+    seven arguments on ``dev``."""
+    from ska_sdp_tpu_torch.ops.idg_aw import PAIR_SHIFT, SENTINEL
+
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(1, 40, 501)
+    lengths[rng.random(501) < 0.2] = 0
+    lengths[0] = 25000
+    rng.shuffle(lengths)
+    lengths = np.concatenate([lengths, np.zeros(200, np.int64)])
+    n, R, d = int(lengths.sum()), lengths.shape[0], SUBGRID / 2 - 8
+    recs = np.stack([rng.uniform(-d, d, n), rng.uniform(-d, d, n),
+                     rng.uniform(-3800.0, 3800.0, n), rng.standard_normal(n),
+                     rng.standard_normal(n)]).astype(np.float32)
+    ext = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32)
+    ia = rng.integers(0, nant, (2, R)).astype(np.int32)
+    sent = rng.random(R) < 0.1
+    ia[0, sent], ia[1, sent] = SENTINEL // PAIR_SHIFT, SENTINEL % PAIR_SHIFT
+    y0 = rng.integers(0, shape[0] + SUBGRID, R).astype(np.int32)
+    x0 = rng.integers(0, shape[1] + SUBGRID, R).astype(np.int32)
+    return [torch.as_tensor(np.ascontiguousarray(a), device=dev)
+            for a in (recs, ext[:-1], ext[1:], y0, x0, ia[0], ia[1])]
+
+
+def run_stats(starts, ends):
+    """``(occupied runs, longest, mean)`` record counts of a run table."""
+    n = (ends - starts)
+    occ = n[n > 0]
+    return int(occ.numel()), int(occ.max()), float(occ.float().mean())
+
+
+def idg_grid_bounds(S: int, n_rec: int, n_runs: int, io: float):
+    """The streamed gridder's bounds for ``n_rec`` records in ``n_runs``
+    runs: ``(f32, tensor_core)``.  ``f32`` is ``bound``'s ``(ms, by)`` of
+    the function on the CUDA cores: 8·S² per record, per run the FFT
+    sandwich and 12·S² of screens.  ``tensor_core`` is ``(ms, by, ms_tc,
+    ms_cuda)`` with the accumulation as ``csrc/idg_grid.cu`` computes it,
+    split3 on the tensor cores at the dense fp16/bf16 peak (3 × 8·S² per
+    record), beside the f32 work on the CUDA cores (per record and subgrid
+    index two ``sincosf`` counted at 20 flop and 20 flop of phases,
+    u = v·e_y and splits; 12·S² per run of screens).  Each run's sandwich
+    goes where the two units finish soonest: dense split3 on the tensor
+    cores (3 × 16·S³) or as the FFT count on the CUDA cores, the runs
+    divided between them to balance the two times.  The bound is the
+    larger of those times and the bytes."""
+    least, _, fft = sandwich_flop(S)
+    f32 = bound(8 * S * S * n_rec + (least + 12 * S * S) * n_runs, io)
+    a = 3 * 8 * S * S * n_rec / BF16_FLOPS * 1e3        # tensor cores
+    b = (60 * S * n_rec + 12 * S * S * n_runs) / F32_FLOPS * 1e3
+    d = 3 * 16 * S ** 3 * n_runs / BF16_FLOPS * 1e3     # all dense on TC
+    c = fft * n_runs / F32_FLOPS * 1e3                   # all FFT on CUDA
+    f = min(1.0, max(0.0, (b + c - a) / (c + d)))       # share sent to TC
+    t_tc, t_cuda = a + f * d, b + (1 - f) * c
+    t_bytes = io / HBM_BPS * 1e3
+    ms = max(t_tc, t_cuda, t_bytes)
+    return f32, (ms, "operations" if ms > t_bytes else "bytes", t_tc,
+                 t_cuda)
+
+
 def main() -> int:
     import torch
 
@@ -465,14 +594,12 @@ def main() -> int:
                                   subgrid=SUBGRID, support=SUPPORT,
                                   max_runs=max_runs, nant=nant)
 
-    def both(recs, shape, scr, theta):
+    def both(recs, shape, scr, theta, S=SUBGRID):
         k = stream.idg_aw_grid_from_records_stream(
-            *recs[:7], shape, scr, theta=theta, subgrid=SUBGRID,
-            taper_beta=BETA)
+            *recs[:7], shape, scr, theta=theta, subgrid=S, taper_beta=BETA)
         pl = stream.grid_from_records_plain(
-            *recs[:7], scr, grid_shape=shape, theta=theta, subgrid=SUBGRID,
-            taper_beta=BETA)[SUBGRID:SUBGRID + shape[0],
-                             SUBGRID:SUBGRID + shape[1]]
+            *recs[:7], scr, grid_shape=shape, theta=theta, subgrid=S,
+            taper_beta=BETA)[S:S + shape[0], S:S + shape[1]]
         torch.cuda.synchronize()
         return k, pl
 
@@ -504,6 +631,31 @@ def main() -> int:
         raise AssertionError(f"mid-size kernel parity failed: {err}, {nd}")
     mid = dict(shape=shape, p=uvw1 / mid_lam, a1=a1, a2=a2, w=uvw1[:, 2],
                scr=scr, n=vis.shape[0])
+
+    # ---- 3c. the other subgrids, and a long run beside short ones --------
+    for S_c, sup in ((32, 7), (128, SUPPORT)):
+        scr_c = torch.as_tensor(aw_screens_host(ak, S_c).astype(
+            np.complex64), device=dev)
+        recs_c = idg_aw_run_records(
+            shape, mid["p"], a1, a2, mid["w"], vis1.real, vis1.imag,
+            subgrid=S_c, support=sup, max_runs=65536, nant=16)
+        k, pl = both(recs_c, shape, scr_c, THETA, S_c)
+        err = rel_l2(k.cpu().numpy(), pl.cpu().numpy())
+        n_occ, longest, mean = run_stats(recs_c[1], recs_c[2])
+        print(f"parity mid at S={S_c} (support {sup}, random screens, "
+              f"{n_occ} runs, longest {longest}): rel-L2 {err:.3e} (bound "
+              f"{KERNEL_TOL}), n_dropped {int(recs_c[7])} both ways")
+        if not err <= KERNEL_TOL:
+            raise AssertionError(f"S={S_c} kernel parity failed: {err}")
+    long_recs = long_run_table(torch, dev, shape, nant=16, seed=3)
+    k, pl = both(long_recs, shape, scr, THETA)
+    err = rel_l2(k.cpu().numpy(), pl.cpu().numpy())
+    n_occ, longest, mean = run_stats(long_recs[1], long_recs[2])
+    print(f"parity long run (S=64, {n_occ} runs, longest {longest}, mean "
+          f"{mean:.1f}, empty and sentinel entries, random screens): rel-L2 "
+          f"{err:.3e} (bound {KERNEL_TOL})")
+    if not err <= KERNEL_TOL:
+        raise AssertionError(f"long-run kernel parity failed: {err}")
 
     # ---- 3b. full-size unit-screen parity (the main path's records) ------
     obs, vd = main_observation()
@@ -586,6 +738,25 @@ def main() -> int:
                       ("idg_image end to end", ms_e2e)):
         print(f"time {label}: {ms:.3f} ms = {n_vis / ms / 1e3:.2f} M vis/s "
               f"[{card}]")
+    S = SUBGRID
+    n_occ, longest, mean = run_stats(recs[1], recs[2])
+    # per run the pair screen (A1·A2, then its product with a: 12·S²) and
+    # the sandwich; inputs read once (records, run tables, screens), the
+    # padded grid written once
+    io = nbytes(*recs[:7], unit) + (n + 2 * S) ** 2 * 8
+    (f32_ms, f32_by), (bound_ms, bound_by, t_tc, t_cuda) = idg_grid_bounds(
+        S, n_vis, n_occ, io)
+    per_run = [c + 12 * S * S for c in sandwich_flop(S)]
+    print(f"  runs: {n_occ} occupied of {recs[1].shape[0]}, longest "
+          f"{longest} records, mean {mean:.1f}")
+    print(f"idg gridder bounds at S={S}: f32 {f32_ms:.3f} ms ({f32_by}; "
+          f"{n_occ} runs x {per_run[0]:.0f} flop, FFT sandwich, + 8·S² x "
+          f"{n_vis} records; dense sandwich "
+          f"{bound(8 * S * S * n_vis + per_run[1] * n_occ, io)[0]:.3f} ms); "
+          f"tensor core {bound_ms:.3f} ms ({bound_by}: split3 products "
+          f"{t_tc:.3f} ms at 989 TFLOP/s, phase factors and screens "
+          f"{t_cuda:.3f} ms at 67 TFLOP/s, bytes "
+          f"{io / HBM_BPS * 1e3:.3f} ms)")
 
     # ---- 6.-10. the degridder and the predict and IDG-AW paths ------------
     print(f"build: idg_degrid.cu for sm_90a in "
@@ -610,20 +781,6 @@ def main() -> int:
     tile = tile_phases(torch, dev, card, vd, obs, img, model, truth)
     spectral_phases(torch, dev, card, mid)
 
-    S = SUBGRID
-    # per run the pair screen (A1·A2, then its product with a: 12·S²) and
-    # the sandwich; inputs read once (records, run tables, screens), the
-    # padded grid written once
-    per_run = [c + 12 * S * S for c in sandwich_flop(S)]
-    grid_ops = 8 * S * S * n_vis + per_run[0] * n_runs
-    io = nbytes(*recs[:7], unit) + (n + 2 * S) ** 2 * 8
-    bound_ms, bound_by = bound(grid_ops, io)
-    print(f"idg gridder bound at S={S}: {n_runs} runs x {per_run[0]:.0f} "
-          f"flop (dense sandwich {per_run[1]:.0f}, FFT sandwich "
-          f"{per_run[2]:.0f}) + 8·S² x {n_vis} records = "
-          f"{grid_ops / 1e9:.2f} GFLOP -> {bound_ms:.3f} ms ({bound_by}; "
-          f"dense count "
-          f"{bound(8 * S * S * n_vis + per_run[1] * n_runs, io)[0]:.3f} ms)")
     print(json.dumps({"kernels": [{
         "name": stream.GRID_KERNEL,
         "route": "cuda",
@@ -1734,7 +1891,6 @@ def spectral_phases(torch, dev, card, mid):
     from ska_sdp_tpu_torch.models import dataset as ds
     from ska_sdp_tpu_torch.models import spectral as sp
     from ska_sdp_tpu_torch.ops.search import find_closest
-    from ska_sdp_tpu_torch.types import SINGLE
 
     S = SUBGRID
 
@@ -1906,67 +2062,41 @@ def spectral_phases(torch, dev, card, mid):
         print(f"time {label} end to end: {t:.3f} ms = "
               f"{nch * n_c / t / 1e3:.2f} M channel-vis/s [{card}]")
 
-    def group_inputs(vd, res, k=0):
-        i, j, f_ref, drift = res.groups[k]
-        uvw = torch.as_tensor(np.asarray(vd.uvw, np.float32), device=dev)
-        vis = torch.as_tensor(np.ascontiguousarray(
-            vd.vis_chan[:, i:j], np.complex64), device=dev).T.contiguous()
-        rat = torch.as_tensor((vd.frequencies[i:j] / f_ref).astype(
-            np.float32), device=dev)
-        uvw1, vis1 = sp._group_inputs(uvw, f_ref, rat, vis, theta=THETA,
-                                      lam=LAM, exact=False)
-        return uvw1, vis1, float(rat[0]), drift
+    def group_inputs(vd, res):
+        return cube_group_inputs(torch, dev, vd, res.groups[0])
 
-    def report(name, label, prep, kernel, ops, io):
+    def report(name, label, prep, kernel, ops, io, tc=None):
         t_k = timed_ms(torch, kernel)
         b_ms, b_by = bound(nch * ops, nch * io)
         pre = (f"multi prep {timed_ms(torch, prep):.3f} ms, " if prep
                else "")
+        tc_txt = (f"; tensor-core bound {nch * tc[0]:.3f} ms ({tc[1]})"
+                  if tc else "")
         print(f"time {label}: {pre}one channel's {name} {t_k:.3f} ms "
               f"({n_c / t_k / 1e3:.2f} M vis/s); bound for the {nch} "
-              f"channels {b_ms:.3f} ms ({b_by}) against {nch} x {t_k:.3f} "
-              f"= {nch * t_k:.3f} ms [{card}]")
+              f"channels {b_ms:.3f} ms ({b_by}{tc_txt}) against {nch} x "
+              f"{t_k:.3f} = {nch * t_k:.3f} ms [{card}]")
 
-    zer = torch.zeros((n_c,), dtype=torch.int32, device=dev)
-    per_run = sandwich_flop(S)[0] + 12 * S * S
     for label, vd, res in (("idg_cube S=64", vd_c, results["idg_cube S=64"]),
                            ("aw_idg_cube S=64", vd_aw,
                             results["aw_idg_cube S=64"])):
-        uvw1, vis1, r0, drift = group_inputs(vd, res)
-        if label.startswith("aw"):
-            layout = ds._detect_time_major_layout(
-                vd.antenna1, vd.antenna2, vd.time, n_c)
-            a1, a2 = (sp._pair_major(torch.as_tensor(
-                a.astype(np.int32), device=dev), layout)
-                for a in (vd.antenna1, vd.antenna2))
-            uvw1 = sp._pair_major(uvw1, layout)
-            vis1 = sp._pair_major(vis1, layout, axis=1)
-            scr = ds._aw_screens(ak, S, THETA, LAM, None, SINGLE, dev)
-            mr = 8 * int(np.unique(vd.antenna1 * 64 + vd.antenna2).size) \
-                + n_c // 128 + 64
-        else:
-            a1 = a2 = zer
-            scr = torch.ones((1, S, S), dtype=torch.complex64, device=dev)
-            tc = max(2 * (S // 2 - SUPPORT // 2 - 12 - drift) - 2, 8)
-            mr = ((n + 2 * S) // tc + 2) ** 2 + 64
-
-        def prep():
-            return awr.idg_aw_run_records_multi(
-                (n, n), uvw1 / LAM, a1, a2, uvw1[:, 2], vis1.real,
-                vis1.imag, subgrid=S, support=SUPPORT, max_runs=mr,
-                drift_cells=drift, ordered=label.startswith("aw"))
-
+        prep, r0, scr = cube_channel_prep(
+            torch, dev, vd, res.groups[0],
+            ak if label.startswith("aw") else None)
         base, vis_s, *runs, nd0, _ = prep()
         recs, _ = awr.idg_aw_records_for_channel(base, vis_s[0], r0,
                                                  subgrid=S)
         n_live = int(base[5].sum())
-        n_runs = int((runs[1] > runs[0]).sum())
+        n_runs, longest, mean = run_stats(runs[0], runs[1])
+        io_b = nbytes(recs, *runs, scr) + (n + 2 * S) ** 2 * 8
+        _, tc_b = idg_grid_bounds(S, n_live, n_runs, io_b)
         report("idg_grid", f"{label} ({n_runs} runs, {n_live} records in "
-               "runs)", prep, lambda: stream.idg_aw_grid_from_records_stream(
+               f"runs, longest {longest}, mean {mean:.1f})", prep,
+               lambda: stream.idg_aw_grid_from_records_stream(
                    recs, *runs, (n, n), scr, theta=THETA, subgrid=S,
                    taper_beta=BETA),
-               8 * S * S * n_live + per_run * n_runs,
-               nbytes(recs, *runs, scr) + (n + 2 * S) ** 2 * 8)
+               8 * S * S * n_live + (sandwich_flop(S)[0] + 12 * S * S)
+               * n_runs, io_b, tc_b[:2])
 
     uvw1, vis1, r0, _ = group_inputs(vd_c, results["idg_cube S=32"])
 

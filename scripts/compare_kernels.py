@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Time the bank w-projection scatter and the fused AW gridder of this
-checkout against those of another checkout, in one process on one NVIDIA
-GPU, in turns.
+"""Time the streamed IDG gridder, the bank w-projection scatter and the
+fused AW gridder of this checkout against those of another checkout, in
+one process on one NVIDIA GPU, in turns.
 
-    python3 scripts/compare_kernels.py --other DIR [--reps 7]
+    python3 scripts/compare_kernels.py --other DIR [--reps 7] [--only NAME]
 
 ``DIR`` holds a checkout of another commit; its ``ska_sdp_tpu_torch/``
 package is loaded under another name and builds its CUDA kernels into its
@@ -14,7 +14,13 @@ benchmark's bank shape (phase 12b: 1,048,576 records, NW=32, QPX=8, 15²,
 one channel of the cube observation (phase 24, channel 0 as ``w_image``
 takes it); ``aw_fused_grid`` at the benchmark's fused-AW shape (phase 16b:
 524,288 records, 64 stations) and at the main path's 512 stations (16d:
-1,046,528 records).  Per shape the two grids are compared (rel-L2), then
+1,046,528 records); ``idg_aw_grid_from_records_stream`` (``idg_grid``) on
+the main path's records at S=64 (phase 3b, unit screens), on channel 0 of
+the cube observation through the IDG prep and through the IDG-AW cube
+raster's ordered prep (phase 25), and at the IDG-AW track shape with
+random screens (phase 9), each with its run table's longest and mean run.
+``--only`` keeps the shapes of one kernel (``idg_grid``, ``wproj_grid``
+or ``aw_grid``).  Per shape the two grids are compared (rel-L2), then
 each wrapper is timed with CUDA events (median of ``--reps`` after a
 warm-up, its prep included) in the order other, this, this, other.  It
 prints the card's name and power limit, then one JSON line per shape with
@@ -35,7 +41,8 @@ sys.path.insert(0, ROOT)
 
 
 def load_other(root: str):
-    """The other checkout's ``(aw_fused, wproj)`` kernel modules."""
+    """The other checkout's ``(aw_fused, wproj, idg_aw_stream)`` kernel
+    modules."""
     pkg = os.path.join(os.path.abspath(root), "ska_sdp_tpu_torch")
     name = "other_ska_sdp_tpu_torch"
     spec = importlib.util.spec_from_file_location(
@@ -44,35 +51,20 @@ def load_other(root: str):
     mod = importlib.util.module_from_spec(spec)
     sys.modules[name] = mod
     spec.loader.exec_module(mod)
-    return (importlib.import_module(f"{name}.kernels.aw_fused"),
-            importlib.import_module(f"{name}.kernels.wproj"))
+    return tuple(importlib.import_module(f"{name}.kernels.{k}")
+                 for k in ("aw_fused", "wproj", "idg_aw_stream"))
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--other", required=True,
-                    help="root of the other checkout")
-    ap.add_argument("--reps", type=int, default=7)
-    args = ap.parse_args()
-
+def bank_aw_cases(torch, dev):
+    """The bank scatter's and the fused AW gridder's shapes: ``(label,
+    records, call)`` with ``call(module)`` the wrapper's grid."""
     import numpy as np
-    import torch
-
-    if not torch.cuda.is_available():
-        print("error: no CUDA device visible", file=sys.stderr)
-        return 1
     from chip_smoke import (LAM, THETA, bench_records, cube_observation,
-                            main_akerns, main_observation, rel_l2, smi,
-                            timed_ms, w_bank_inputs)
-    from ska_sdp_tpu_torch.kernels import aw_fused, wproj
+                            main_akerns, main_observation, w_bank_inputs)
+    from ska_sdp_tpu_torch.kernels import aw_fused
     from ska_sdp_tpu_torch.models import dataset as ds
     from ska_sdp_tpu_torch.ops import doweight, mirror_uvw, uvw_lambda
     from ska_sdp_tpu_torch.ops.search import find_closest
-
-    other_aw, other_wproj = load_other(args.other)
-    dev = torch.device("cuda", 0)
-    card = smi()
-    print(f"nvidia-smi: {card}")
 
     def to_dev(*arrays):
         return [torch.as_tensor(a, device=dev) for a in arrays]
@@ -143,9 +135,116 @@ def main() -> int:
                   lambda m: m.wproj_gridder(bank_c, g_c.grid_shape, g_c.p,
                                             wbin_c, g_c.vis)))
 
+    return cases
+
+
+def idg_grid_cases(torch, dev):
+    """The streamed gridder's shapes, ``(label, records, call)``; each label
+    names its run table's occupied runs, longest and mean run."""
+    import numpy as np
+    from chip_smoke import (BETA, LAM, SUBGRID, SUPPORT, THETA,
+                            aw_cube_inputs, aw_track_inputs, cube_akerns,
+                            cube_channel_prep, cube_observation,
+                            main_observation, run_stats)
+    from ska_sdp_tpu_torch.kernels import _idg_unit_run_bound
+    from ska_sdp_tpu_torch.kernels.idg_aw_records import (
+        idg_aw_records_for_channel, idg_aw_run_records)
+    from ska_sdp_tpu_torch.models import dataset as ds
+    from ska_sdp_tpu_torch.models import spectral as sp
+    from ska_sdp_tpu_torch.types import SINGLE
+
+    S = SUBGRID
+    cases = []
+
+    def add(label, recs, shape, scr, theta):
+        n_occ, longest, mean = run_stats(recs[1], recs[2])
+        cases.append((f"{label} ({n_occ} runs, longest {longest}, mean "
+                      f"{mean:.1f})", int(recs[0].shape[1]),
+                      lambda m: m.idg_aw_grid_from_records_stream(
+                          *recs, shape, scr, theta=theta, subgrid=S,
+                          taper_beta=BETA)))
+
+    # the main path's records, unit screens (phase 3b)
+    _, vd = main_observation()
+    uvw, f, vis = ds.idg_inputs(vd, device=dev)
+    g = ds.idg_grid_inputs(uvw, f, vis, theta=THETA, lam=LAM)
+    zer = torch.zeros((vis.shape[0],), dtype=torch.int32, device=dev)
+    recs = idg_aw_run_records(
+        g.grid_shape, g.p, zer, zer, g.w, g.vis.real, g.vis.imag, subgrid=S,
+        support=SUPPORT, max_runs=_idg_unit_run_bound(g.grid_shape, S,
+                                                      SUPPORT), nant=1)
+    add("idg_grid, main path", recs[:7], g.grid_shape,
+        torch.ones((1, S, S), dtype=torch.complex64, device=dev), g.theta)
+
+    # channel 0 of the cube observation: the IDG prep and the IDG-AW cube
+    # raster's ordered prep (phase 25)
+    n = int(round(THETA * LAM))
+    kw = dict(subgrid=S, taper_beta=BETA, theta=THETA, lam=LAM, device=dev)
+    for label, vdx, ak in (
+            ("idg_grid, cube channel 0, IDG prep", cube_observation()[1],
+             None),
+            ("idg_grid, cube channel 0, IDG-AW cube raster",
+             aw_cube_inputs(), cube_akerns())):
+        res = (sp.idg_cube(vdx, **kw) if ak is None
+               else sp.aw_idg_cube(vdx, ak, **kw))
+        prep, r0, scr = cube_channel_prep(torch, dev, vdx, res.groups[0], ak)
+        base, vis_s, *runs, _, _ = prep()
+        rec0, _ = idg_aw_records_for_channel(base, vis_s[0], r0, subgrid=S)
+        add(label, [rec0, *runs], (n, n), scr, THETA)
+
+    # the IDG-AW track shape with random screens (phase 9)
+    t = aw_track_inputs()
+    scr = ds._aw_screens(t.ak, S, THETA, LAM, None, SINGLE, dev)
+    uvw, f, vis = ds.idg_inputs(t.vd, device=dev)
+    a1, a2 = (torch.as_tensor(a.astype(np.int32), device=dev)
+              for a in (t.a1, t.a2))
+    ga, a1g, a2g = ds.aw_grid_inputs(uvw, a1, a2, f, vis, theta=THETA,
+                                     lam=LAM, layout=None)
+    recs = idg_aw_run_records(
+        ga.grid_shape, ga.p, a1g, a2g, ga.w, ga.vis.real, ga.vis.imag,
+        subgrid=S, support=SUPPORT,
+        max_runs=ds._aw_run_bound(t.vd.antenna1, t.vd.antenna2, t.n),
+        nant=t.nant)
+    add("idg_grid, IDG-AW track shape", recs[:7], ga.grid_shape, scr,
+        ga.theta)
+    return cases
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--other", required=True,
+                    help="root of the other checkout")
+    ap.add_argument("--reps", type=int, default=7)
+    ap.add_argument("--only", choices=("idg_grid", "wproj_grid", "aw_grid"),
+                    help="time only this kernel's shapes")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("error: no CUDA device visible", file=sys.stderr)
+        return 1
+    from chip_smoke import rel_l2, smi, timed_ms
+    from ska_sdp_tpu_torch.kernels import aw_fused, wproj
+    from ska_sdp_tpu_torch.kernels import idg_aw_stream as stream
+
+    others = dict(zip(("aw_grid", "wproj_grid", "idg_grid"),
+                      load_other(args.other)))
+    mods = {"aw_grid": aw_fused, "wproj_grid": wproj, "idg_grid": stream}
+    dev = torch.device("cuda", 0)
+    card = smi()
+    print(f"nvidia-smi: {card}")
+    cases = []
+    if args.only != "idg_grid":
+        cases += bank_aw_cases(torch, dev)
+    if args.only in (None, "idg_grid"):
+        cases += idg_grid_cases(torch, dev)
+    if args.only:
+        cases = [c for c in cases if c[0].startswith(args.only + ",")]
+
     for label, n, call in cases:
-        other = other_wproj if label.startswith("wproj") else other_aw
-        this = wproj if label.startswith("wproj") else aw_fused
+        kind = label.split(",")[0]
+        this, other = mods[kind], others[kind]
         err = rel_l2(call(this).cpu().numpy(), call(other).cpu().numpy())
         times = {"other": [], "this": []}
         for who in ("other", "this", "this", "other"):

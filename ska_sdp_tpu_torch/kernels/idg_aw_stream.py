@@ -16,8 +16,12 @@ Degridding is its exact adjoint: the run's window ``W`` becomes
 and zero pair ids both are plain continuous-w IDG.
 
 The wrappers launch the CUDA kernels for CUDA tensors and use the plain
-versions only for CPU tensors; they never fall back.  All compute in full
-float32, the reference's ``exact`` precision tier.  The reference's
+versions only for CPU tensors; they never fall back.  The plain versions
+and the degridder compute in full float32, the reference's ``exact``
+precision tier; the CUDA gridder runs its products on the tensor cores
+with split-fp16 operands scaled by powers of two (three fp16 passes into
+float32 sums, as the reference's ``split3`` tier splits bf16), ~3e-7 of
+float64.  The reference's
 run-major kernels (``idg_aw_pallas.py::_kernel`` and
 ``idg_aw_degrid_pallas.py::_kernel``, selected by
 ``SKA_SDP_TPU_IDG_AW_KERNEL=run``) compute the same two operators, so the
@@ -57,17 +61,61 @@ def reset_launch_count() -> None:
         _launches[k] = 0
 
 
-@functools.lru_cache(maxsize=16)
-def _dft_factors(S: int, taper_beta: float, device=None):
+def _dft_factor64(S: int, taper_beta: float, device=None):
     """The taper-folded DFT matrix ``F[y, q] = e^{−2πi k_y k_q / S}/S ·
-    taper[q]`` (``k = i − S/2``) and its transpose, built in float64 and
-    returned as contiguous complex64; built once per (S, β, device), so
-    callers only read them."""
+    taper[q]`` (``k = i − S/2``) in complex128."""
     F = _dft_matrix(S, torch.complex128, device) / S
     if taper_beta > 0:
         F = F * kaiser_taper(S, taper_beta, torch.float64, device)[None, :]
-    F = F.to(torch.complex64)
+    return F
+
+
+@functools.lru_cache(maxsize=16)
+def _dft_factors(S: int, taper_beta: float, device=None):
+    """:func:`_dft_factor64` and its transpose as contiguous complex64;
+    built once per (S, β, device), so callers only read them."""
+    F = _dft_factor64(S, taper_beta, device).to(torch.complex64)
     return F, F.T.contiguous()
+
+
+def _split_f16(x):
+    """``(hi, lo)`` float16 planes of a float tensor: ``hi = fp16(x)``,
+    ``lo = fp16(x − hi)``, so ``hi + lo`` holds ~22 bits of ``x``."""
+    hi = x.to(torch.float16)
+    return hi, (x - hi.to(x.dtype)).to(torch.float16)
+
+
+@functools.lru_cache(maxsize=16)
+def _dft_planes(S: int, taper_beta: float, device=None):
+    """The split-fp16 planes ``[4, S, S]`` (re hi, re lo, im hi, im lo) of
+    ``16·S·F`` (|·| ≤ 16, where fp16 keeps its full precision) for
+    ``csrc/idg_grid.cu``'s tensor-core sandwich, split from the float64
+    factor; built once per (S, β, device)."""
+    F = _dft_factor64(S, taper_beta, device) * (16 * S)
+    return torch.stack([*_split_f16(F.real), *_split_f16(F.imag)])
+
+
+def length_class(n):
+    """Run-length class of the gridder's block order: 0 for ``n ≤ 0``, else
+    ``4·⌊log2 n⌋ + (the two bits of n below its leading one) + 1``, so
+    classes are about 19% apart in length."""
+    n = n.to(torch.int64)
+    pos = n > 0
+    m = torch.where(pos, n, torch.ones_like(n))
+    e = torch.floor(torch.log2(m.to(torch.float64))).to(torch.int64)
+    mant = torch.where(e >= 2, m >> torch.clamp(e - 2, min=0),
+                       m << torch.clamp(2 - e, min=0)) & 3
+    return torch.where(pos, 4 * e + mant + 1, torch.zeros_like(n))
+
+
+def run_order(starts, ends):
+    """Plain version of the gridder's block order (``csrc/idg_grid.cu``'s
+    ``run_order_kernel``, which runs in the same launch): run-table indices
+    by descending :func:`length_class`, int32.  Empty entries come last.
+    Here ties keep table order; the kernel's counting sort leaves the order
+    inside a class arbitrary."""
+    return torch.argsort(length_class(ends - starts), descending=True,
+                         stable=True).to(torch.int32)
 
 
 @contextlib.contextmanager
@@ -259,7 +307,9 @@ def _grid_from_records_cuda(recs, starts, ends, y0, x0, ia1, ia2, screens,
                             *, grid_shape, theta: float, subgrid: int,
                             taper_beta: float):
     """Launch ``csrc/idg_grid.cu`` on the current stream; returns the padded
-    grid.  Raises on bad inputs and on a refused launch."""
+    grid.  The launch first sorts the run table into its block order, in a
+    scratch buffer of the table's length.  Raises on bad inputs and on a
+    refused launch."""
     S = subgrid
     if S not in STREAM_SUBGRIDS:
         raise ValueError(f"subgrid {S} outside the kernel's envelope "
@@ -270,18 +320,19 @@ def _grid_from_records_cuda(recs, starts, ends, y0, x0, ia1, ia2, screens,
     HP, WP = N + 2 * S, Nx + 2 * S
     dev = recs.device
     out = torch.zeros((HP, WP), dtype=torch.complex64, device=dev)
-    F, FT = _dft_factors(S, taper_beta, dev)
+    planes = _dft_planes(S, taper_beta, dev)
+    order = torch.empty_like(starts)
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn, err = bind("idg_grid", "idg_grid_stream",
-                    [vp, ctypes.c_longlong, vp, vp, vp, vp, vp, vp, ci, vp,
-                     ci, vp, vp, vp, ci, ci, cf, cf, cf, vp])
+                    [vp, ctypes.c_longlong, vp, vp, vp, vp, vp, vp, vp, ci,
+                     vp, ci, vp, vp, ci, ci, cf, cf, cf, vp])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(recs.data_ptr(), recs.shape[1], starts.data_ptr(),
-                ends.data_ptr(), y0.data_ptr(), x0.data_ptr(),
-                ia1.data_ptr(), ia2.data_ptr(), starts.shape[0],
-                screens.data_ptr(), screens.shape[0], F.data_ptr(),
-                FT.data_ptr(), out.data_ptr(), WP, S,
+        rc = fn(recs.data_ptr(), recs.shape[1], order.data_ptr(),
+                starts.data_ptr(), ends.data_ptr(), y0.data_ptr(),
+                x0.data_ptr(), ia1.data_ptr(), ia2.data_ptr(),
+                starts.shape[0], screens.data_ptr(), screens.shape[0],
+                planes.data_ptr(), out.data_ptr(), WP, S,
                 *_phase_scalars(S, theta, N, Nx), stream)
     if rc != 0:
         raise RuntimeError(f"{GRID_KERNEL} launch failed: "

@@ -9,9 +9,13 @@ port is checked both on the reference prep's records
 (``from_jax_run_records``: kernel parity alone) and through its own prep.
 
 On the CPU the wrapper takes the plain version; the CUDA kernel itself is
-checked by the ``cuda``-marked tests, which skip without a card.
+checked by the ``cuda``-marked tests, which skip without a card.  The
+kernel's split-fp16 tensor-core arithmetic is emulated here on the CPU and
+held to float64 within 1e-6 (``TestSplitF16Numerics``); its block order
+is held to its plain version (``TestRunOrder``).
 """
 
+import math
 from types import SimpleNamespace
 
 import numpy as np
@@ -22,7 +26,8 @@ from ska_sdp_tpu_torch import kernels
 from ska_sdp_tpu_torch.kernels import idg_aw_stream
 from ska_sdp_tpu_torch.kernels.idg_aw_records import (
     from_jax_run_records, idg_aw_run_records)
-from ska_sdp_tpu_torch.ops.idg_aw import aw_screens_host
+from ska_sdp_tpu_torch.ops.idg import _dft_matrix, kaiser_taper
+from ska_sdp_tpu_torch.ops.idg_aw import PAIR_SHIFT, SENTINEL, aw_screens_host
 
 torch.set_num_threads(2)
 
@@ -242,6 +247,178 @@ class TestGridderPieces:
                                              runs, scr, S)
 
 
+def _planes(x):
+    """The kernel's split of a float32 tensor: float32 values of its fp16
+    planes ``hi = fp16(x)``, ``lo = fp16(x − hi)``."""
+    x = x.to(torch.float32)
+    hi = x.to(torch.float16).float()
+    return hi, (x - hi).to(torch.float16).float()
+
+
+def _real3(a, b):
+    """A real product as the kernel's three fp16 passes (hi·hi, hi·lo,
+    lo·hi) with float32 sums; ``a`` and ``b`` are (hi, lo) pairs.  Products
+    of fp16 values are exact in float32, so a float32 matmul emulates one
+    pass of ``mma.sync`` up to the order of the sums."""
+    return a[0] @ b[0] + a[0] @ b[1] + a[1] @ b[0]
+
+
+def _complex3(a, b):
+    """A complex product on split planes, stacked over the depth as the
+    kernel stacks it: re = [a_re | −a_im]·[b_re ; b_im], im = [a_re | a_im]
+    ·[b_im ; b_re]; ``a``, ``b`` are (re pair, im pair)."""
+    (ar, ai), (br, bi) = a, b
+
+    def cat(x, y, dim):
+        return tuple(torch.cat([x[i], y[i]], dim) for i in range(2))
+
+    re = _real3(cat(ar, tuple(-x for x in ai), 1), cat(br, bi, 0))
+    im = _real3(cat(ar, ai, 1), cat(bi, br, 0))
+    return torch.complex(re, im)
+
+
+def _split_c(z):
+    return _planes(z.real), _planes(z.imag)
+
+
+def _exponent(z):
+    """e with max(|re|, |im|) < 2^e, as the kernel's frexp."""
+    m = float(torch.maximum(z.real.abs(), z.imag.abs()).max())
+    return math.frexp(m)[1]
+
+
+def _long_run(S, nb=2242, seed=0):
+    """One run of ``nb`` records at the main path's phase range (|dy|,
+    |dx| < S/2 − 8 cells, |w| ≤ 100,000 λ at θ = 0.008: |ph| to ~110
+    rad), visibilities of order 1e3: ``(v [b], u [b, S], e_x [b, S])``
+    complex64 from the plain version's phase factors."""
+    rng = np.random.default_rng(seed)
+    d = S / 2 - 8
+    dy, dx = (torch.as_tensor(rng.uniform(-d, d, nb).astype(np.float32))
+              for _ in range(2))
+    w = torch.as_tensor(rng.uniform(-1e5, 1e5, nb).astype(np.float32))
+    v = torch.as_tensor((1e3 * (rng.standard_normal(nb)
+                                + 1j * rng.standard_normal(nb))
+                         ).astype(np.complex64))
+    ey, ex = idg_aw_stream._phase_factors(S, 0.008, 0.008,
+                                          torch.device("cpu"))(dy, dx, w)
+    return v, v[:, None] * ey, ex
+
+
+def _factor64(S, beta=12.0):
+    """The taper-folded DFT factor F in float64."""
+    return (_dft_matrix(S, torch.complex128) / S
+            * kaiser_taper(S, beta, torch.float64)[None, :])
+
+
+SPLIT_TOL = 1e-6     # ~3e-7 of float64; split-bf16 gives 4e-6–6e-6
+
+
+class TestSplitF16Numerics:
+    """The CUDA gridder's arithmetic, emulated on the CPU: its products
+    (the accumulation a = u·e_xᵀ and the sandwich F·t·Fᵀ) on split-fp16
+    planes of operands scaled by powers of two below 16, three passes each,
+    float32 sums, against float64."""
+
+    @pytest.mark.parametrize("S", [32, 64, 128])
+    def test_accumulation(self, S):
+        v, u, ex = _long_run(S, seed=S)
+        want = u.to(torch.complex128).T @ ex.to(torch.complex128)
+        got = torch.zeros((S, S), dtype=torch.complex64)
+        for c0 in range(0, v.shape[0], 32):       # the kernel's chunks
+            e = _exponent(v[c0:c0 + 32])
+            us = u[c0:c0 + 32] * 2.0 ** (3 - e)
+            for k0 in range(0, us.shape[0], 16):  # its 16-deep steps
+                part = _complex3(_split_c(us[k0:k0 + 16].T.contiguous()),
+                                 _split_c(ex[c0 + k0:c0 + k0 + 16]))
+                got += part * 2.0 ** (e - 3)
+        assert _rel(got.numpy(), want.numpy()) < SPLIT_TOL
+
+    @pytest.mark.parametrize("S", [32, 64, 128])
+    def test_sandwich(self, S):
+        _, u, ex = _long_run(S, seed=S + 1)
+        a = (u.to(torch.complex128).T @ ex.to(torch.complex128))
+        rng = np.random.default_rng(S)
+        scr = torch.as_tensor(_screens(rng, 2, S))
+        t = a.to(torch.complex64) * torch.conj(scr[0] * scr[1])
+        F = _factor64(S)
+        want = F @ t.to(torch.complex128) @ F.T
+        P = idg_aw_stream._dft_planes(S, 12.0).float()  # 16·S·F
+        f = ((P[0], P[1]), (P[2], P[3]))
+        fT = tuple(tuple(x.T for x in pair) for pair in f)
+        e_t = _exponent(t)
+        B = _complex3(f, _split_c(t * 2.0 ** (4 - e_t)))
+        got = _complex3(_split_c(B), fT) * 2.0 ** (e_t - 12) / (S * S)
+        assert _rel(got.numpy(), want.numpy()) < SPLIT_TOL
+
+    @pytest.mark.parametrize("S", [32, 64, 128])
+    def test_dft_planes_split_the_float64_factor(self, S):
+        F = _factor64(S) * (16 * S)
+        P = idg_aw_stream._dft_planes(S, 12.0)
+        assert P.dtype == torch.float16 and P.shape == (4, S, S)
+        assert P.is_contiguous()
+        for k, part in ((0, F.real), (2, F.imag)):
+            assert float(part.abs().max()) <= 16
+            assert torch.equal(P[k], part.to(torch.float16))
+            err = (P[k].double() + P[k + 1].double() - part).abs().max()
+            assert float(err) <= 2.0 ** -21 * float(part.abs().max())
+
+
+class TestRunOrder:
+    def test_random_table(self):
+        rng = np.random.default_rng(41)
+        lengths = rng.integers(1, 3000, 700)
+        lengths[rng.random(700) < 0.3] = 0
+        ext = np.concatenate([[0], np.cumsum(lengths)])
+        starts = torch.as_tensor(ext[:-1].astype(np.int32))
+        ends = torch.as_tensor(ext[1:].astype(np.int32))
+        self._check(starts, ends)
+
+    def test_prep_table(self):
+        # the prep's table: occupied runs, sentinel runs, trailing empties
+        rng = np.random.default_rng(42)
+        p, w, a1, a2, vis = track_problem(rng, nant=5, ntime=40)
+        recs = idg_aw_run_records(
+            (N, N), *(torch.as_tensor(x) for x in (p, a1, a2, w, vis.real,
+                                                   vis.imag)),
+            max_runs=4096, nant=5)
+        starts, ends = recs[1], recs[2]
+        assert int((ends <= starts).sum()) > 0
+        self._check(starts, ends)
+
+    def test_length_class(self):
+        # brute force: 4 classes per octave, by the two bits below the
+        # leading one; 0 for empty (or inverted) entries
+        n = np.array([-3, 0, 1, 2, 3, 4, 5, 6, 7, 8, 11, 12, 567, 2242,
+                      25000, 2**20 + 5, 2**31 - 1])
+        want = []
+        for v in n:
+            if v <= 0:
+                want.append(0)
+                continue
+            e = int(v).bit_length() - 1
+            mant = (v >> (e - 2)) & 3 if e >= 2 else (v << (2 - e)) & 3
+            want.append(4 * e + int(mant) + 1)
+        got = idg_aw_stream.length_class(torch.as_tensor(n))
+        assert got.tolist() == want
+
+    @staticmethod
+    def _check(starts, ends):
+        """A permutation of the table by non-increasing length class, every
+        empty entry after every occupied one."""
+        order = idg_aw_stream.run_order(starts, ends)
+        assert order.dtype == torch.int32 and order.shape == starts.shape
+        assert torch.equal(torch.sort(order.long()).values,
+                           torch.arange(starts.shape[0]))
+        length = (ends - starts)[order.long()]
+        cls = idg_aw_stream.length_class(length)
+        assert bool((cls[:-1] >= cls[1:]).all())
+        occupied = length > 0
+        n_occ = int(occupied.sum())
+        assert bool(occupied[:n_occ].all()) and not bool(
+            occupied[n_occ:].any())
+
+
 class TestDispatch:
     @pytest.mark.parametrize("S,support", [(64, 15), (128, 15), (32, 7),
                                            (32, 15), (48, 15)])
@@ -327,3 +504,81 @@ class TestCudaKernel:
             *recs[:7], scr, grid_shape=(N, N), theta=THETA,
             subgrid=S)[S:S + N, S:S + N]
         assert _rel(g.cpu().numpy(), plain.cpu().numpy()) < TOL
+
+
+def _hand_table(S, lengths, nant, seed, sentinel=0.0, trailing=0):
+    """A run table over random records, built by hand for the card tests:
+    runs of the given lengths (0: an empty entry) at random origins, random
+    pair ids, a share ``sentinel`` of them carrying the prep's sentinel pair
+    id (the kernel clamps it), and ``trailing`` empty entries at the end, as
+    the prep leaves them.  Returns the first seven gridder arguments."""
+    rng = np.random.default_rng(seed)
+    lengths = np.concatenate([np.asarray(lengths), np.zeros(trailing, int)])
+    n = int(lengths.sum())
+    d = S / 2 - 8
+    recs = np.stack([rng.uniform(-d, d, n), rng.uniform(-d, d, n),
+                     rng.uniform(-250.0, 250.0, n), rng.standard_normal(n),
+                     rng.standard_normal(n)]).astype(np.float32)
+    ext = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32)
+    R = lengths.shape[0]
+    hp = N + S
+    ia1 = rng.integers(0, nant, R).astype(np.int32)
+    ia2 = rng.integers(0, nant, R).astype(np.int32)
+    sent = rng.random(R) < sentinel
+    ia1[sent] = SENTINEL // PAIR_SHIFT
+    ia2[sent] = SENTINEL % PAIR_SHIFT
+    return (recs, ext[:-1], ext[1:], rng.integers(0, hp, R).astype(np.int32),
+            rng.integers(0, hp, R).astype(np.int32), ia1, ia2)
+
+
+@pytest.mark.cuda
+class TestCudaTensorCoreKernel:
+    """The tensor-core gridder against its plain version on the card, at
+    every subgrid it takes, on tables the prep rarely makes."""
+
+    @staticmethod
+    def _check(dev, table, S, nant, seed):
+        t = [torch.as_tensor(x, device=dev) for x in table]
+        scr = torch.as_tensor(_screens(np.random.default_rng(seed), nant, S),
+                              device=dev)
+        idg_aw_stream.reset_launch_count()
+        g = idg_aw_stream.idg_aw_grid_from_records_stream(
+            *t, (N, N), scr, theta=THETA, subgrid=S)
+        torch.cuda.synchronize()
+        assert idg_aw_stream.launch_count() == 1
+        plain = idg_aw_stream.grid_from_records_plain(
+            *t, scr, grid_shape=(N, N), theta=THETA,
+            subgrid=S)[S:S + N, S:S + N]
+        err = _rel(g.cpu().numpy(), plain.cpu().numpy())
+        assert np.isfinite(err) and err < TOL
+
+    @pytest.mark.parametrize("S", [32, 64, 128])
+    def test_subgrids_random_screens(self, cuda_device, S):
+        rng = np.random.default_rng(50 + S)
+        lengths = rng.integers(1, 600, 400)
+        lengths[rng.random(400) < 0.2] = 0
+        self._check(cuda_device, _hand_table(S, lengths, 5, S), S, 5, S)
+
+    def test_long_run_beside_short_ones(self, cuda_device):
+        rng = np.random.default_rng(61)
+        lengths = np.concatenate([[25000], rng.integers(1, 40, 500)])
+        rng.shuffle(lengths)
+        self._check(cuda_device, _hand_table(64, lengths, 4, 61), 64, 4, 61)
+
+    def test_kernel_block_order(self, cuda_device):
+        # blocks take the runs in the launch's own counting-sort order; on
+        # uneven runs with empty entries among them and trailing, parity
+        # holds only if that order takes every run exactly once
+        rng = np.random.default_rng(63)
+        lengths = rng.integers(1, 5000, 3000)
+        lengths[rng.random(3000) < 0.3] = 0
+        self._check(cuda_device, _hand_table(64, lengths, 2, 63,
+                                             trailing=500), 64, 2, 63)
+
+    def test_sentinel_and_empty_entries(self, cuda_device):
+        rng = np.random.default_rng(62)
+        lengths = rng.integers(1, 300, 600)
+        lengths[rng.random(600) < 0.4] = 0
+        self._check(cuda_device, _hand_table(64, lengths, 3, 62,
+                                             sentinel=0.1, trailing=200),
+                    64, 3, 62)
