@@ -36,9 +36,13 @@ result line):
    CUDA cores, and the tensor-core bound of its split-fp16 products);
 6. build: the degridder's build time and ptxas resource use;
 7. degridder parity on the card against its plain version: the mid-size
-   IDG-AW case of phase 3 degridding a random grid, and the full-size
+   IDG-AW case of phase 3 degridding a random grid at S=64, 32 (support
+   7) and 128, phase 3c's table (one run of 25,000 records among 500 short
+   ones, empty and sentinel entries) degridding the same grid, the
+   sentinel runs' records predicting exactly 0, and the full-size
    unit-screen records degridding phase 3's grid; predicted-visibility
-   rel-L2 ≤ 5e-5 and equal ``n_dropped``;
+   rel-L2 ≤ 5e-5 and equal ``n_dropped``; and the adjoint identity
+   through both streamed kernels on the mid-size case to 1e-5;
 8. IDG predict main path: a 2400² model of phase 4's five sources, each
    snapped to a pixel centre, through ``idg_predict_vis`` with the launch
    counts reset just before; checks finite output, no drops, at least one
@@ -59,8 +63,10 @@ result line):
    ``max_runs = 16·nbl + n/128 + 64``) gridded and degridded through both
    kernels, 0 dropped and each within 5e-5 of its plain version;
 10. degridder times (CUDA events, median of 7 after a warm-up): the
-    kernel, its plain version, the degrid prep, and IDG predict, IDG-AW
-    image and IDG-AW predict end to end;
+    kernel at the main path and at phase 9's IDG-AW track shape (each
+    beside the f32 design's time that ``PERF.md`` records), its plain
+    version, the degrid prep, and IDG predict, IDG-AW image and IDG-AW
+    predict end to end; the degridder's two bounds, as the gridder's;
 11. build: the w-projection kernels' build times and ptxas resource use;
 12. w-projection kernel parity on the card against the plain versions
     (``ops/gridding.py``) on the same inputs: grid and visibility rel-L2
@@ -71,7 +77,8 @@ result line):
     random bank from numpy seed 0), at its 4800² shape (θ=0.016, the
     same records and bank: the fold of the tiled TPU kernels), and skewed:
     262,144 records of that bank all inside one 32² output tile of the
-    scatter (one tile's entries spread over many warps);
+    scatter and one 32² tile of the gather (one tile's entries spread
+    over many warps of the scatter and many blocks of the gather);
 13. w-projection main paths on phase 4's observation with a 32-plane,
     qpx=8, 15² bank (npix_ff=256) for its w range, built on the card by
     ``ops/wkernel``, each with the launch counts reset just before:
@@ -84,8 +91,10 @@ result line):
     the prediction, and one through the conjugated bank, against phase 8's
     float64 direct DFT;
 14. w-projection times (CUDA events, median of 7 after a warm-up): each
-    kernel and its plain version at the full-size shape, the bank build,
-    and ``w_image`` and ``w_predict_vis`` end to end;
+    kernel and its plain version at the full-size shape (the gather beside
+    its earlier design's time that ``PERF.md`` records), each kernel on
+    the main path's records, the bank build, and ``w_image`` and
+    ``w_predict_vis`` end to end;
 15. build: the fused AW gridder's build time and ptxas resource use;
 16. fused AW kernel parity on the card against ``aw_fused_plain`` on the
     same records and tables: grid rel-L2 ≤ 5e-5 (float32 sums in atomic
@@ -164,10 +173,11 @@ The line before last is the ``nvidia-smi`` name and power limit, the one
 before it a JSON summary of the kernels (``replaces`` lists each TPU
 kernel the CUDA kernel stands for, folds included; ``bound_ms`` is the
 larger of the f32 operations over 67 TFLOP/s and the bytes over 3.35 TB/s,
-from this run's inputs, and for ``idg_grid_stream``, whose products run on
-the tensor cores, the larger of those products over 989 TFLOP/s, its f32
-phase work over 67 TFLOP/s and the bytes, each run's sandwich placed on
-whichever unit finishes soonest); the last line is
+from this run's inputs, and for ``idg_grid_stream`` and
+``idg_degrid_stream``, whose products run on the tensor cores, the larger
+of those products over 989 TFLOP/s, their f32 phase work over 67 TFLOP/s
+and the bytes, each run's sandwich placed on whichever unit finishes
+soonest); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -513,16 +523,19 @@ def run_stats(starts, ends):
     return int(occ.numel()), int(occ.max()), float(occ.float().mean())
 
 
-def idg_grid_bounds(S: int, n_rec: int, n_runs: int, io: float):
-    """The streamed gridder's bounds for ``n_rec`` records in ``n_runs``
-    runs: ``(f32, tensor_core)``.  ``f32`` is ``bound``'s ``(ms, by)`` of
+def idg_stream_bounds(S: int, n_rec: int, n_runs: int, io: float):
+    """The streamed gridder's (and, its adjoint, the streamed
+    degridder's) bounds for ``n_rec`` records in ``n_runs`` runs:
+    ``(f32, tensor_core)``.  ``f32`` is ``bound``'s ``(ms, by)`` of
     the function on the CUDA cores: 8·S² per record, per run the FFT
     sandwich and 12·S² of screens.  ``tensor_core`` is ``(ms, by, ms_tc,
-    ms_cuda)`` with the accumulation as ``csrc/idg_grid.cu`` computes it,
-    split3 on the tensor cores at the dense fp16/bf16 peak (3 × 8·S² per
-    record), beside the f32 work on the CUDA cores (per record and subgrid
-    index two ``sincosf`` counted at 20 flop and 20 flop of phases,
-    u = v·e_y and splits; 12·S² per run of screens).  Each run's sandwich
+    ms_cuda)`` with the gridder's accumulation, or the degridder's
+    contraction, as ``csrc/idg_grid.cu`` and ``csrc/idg_degrid.cu``
+    compute it, split3 on the tensor cores at the dense fp16/bf16 peak
+    (3 × 8·S² per record), beside the f32 work on the CUDA cores (per
+    record and subgrid index two ``sincosf`` counted at 20 flop and 20 flop
+    of phases, u = v·e_y or the conj(e_y) weighting, and splits; 12·S² per
+    run of screens).  Each run's sandwich
     goes where the two units finish soonest: dense split3 on the tensor
     cores (3 × 16·S³) or as the FFT count on the CUDA cores, the runs
     divided between them to balance the two times.  The bound is the
@@ -630,7 +643,7 @@ def main() -> int:
     if not err <= KERNEL_TOL or nd != 0:
         raise AssertionError(f"mid-size kernel parity failed: {err}, {nd}")
     mid = dict(shape=shape, p=uvw1 / mid_lam, a1=a1, a2=a2, w=uvw1[:, 2],
-               scr=scr, n=vis.shape[0])
+               scr=scr, ak=ak, n=vis.shape[0])
 
     # ---- 3c. the other subgrids, and a long run beside short ones --------
     for S_c, sup in ((32, 7), (128, SUPPORT)):
@@ -744,7 +757,7 @@ def main() -> int:
     # the sandwich; inputs read once (records, run tables, screens), the
     # padded grid written once
     io = nbytes(*recs[:7], unit) + (n + 2 * S) ** 2 * 8
-    (f32_ms, f32_by), (bound_ms, bound_by, t_tc, t_cuda) = idg_grid_bounds(
+    (f32_ms, f32_by), (bound_ms, bound_by, t_tc, t_cuda) = idg_stream_bounds(
         S, n_vis, n_occ, io)
     per_run = [c + 12 * S * S for c in sandwich_flop(S)]
     print(f"  runs: {n_occ} occupied of {recs[1].shape[0]}, longest "
@@ -820,7 +833,7 @@ def degrid_phases(torch, dev, card, mid, vd, obs, grid_full):
     from ska_sdp_tpu_torch.kernels.idg_aw_records import (
         idg_aw_degrid_records, idg_aw_run_records)
     from ska_sdp_tpu_torch.models import dataset as ds
-    from ska_sdp_tpu_torch.ops.idg_aw import PAIR_SHIFT
+    from ska_sdp_tpu_torch.ops.idg_aw import PAIR_SHIFT, aw_screens_host
     from ska_sdp_tpu_torch.types import SINGLE
 
     def degrid_both(shape, p, a1, a2, w, grid, scr, theta, max_runs):
@@ -848,6 +861,72 @@ def degrid_phases(torch, dev, card, mid, vd, obs, grid_full):
           f"n_dropped kernel {nd} plain {nd}")
     if not err <= KERNEL_TOL or nd != 0:
         raise AssertionError(f"mid-size degrid parity failed: {err}, {nd}")
+
+    # ---- 7e. the adjoint identity through both streamed kernels -----------
+    vis_r = torch.as_tensor((rng.standard_normal(mid["n"])
+                             + 1j * rng.standard_normal(mid["n"])).astype(
+        np.complex64), device=dev)
+    kw_a = dict(theta=THETA, subgrid=SUBGRID, support=SUPPORT,
+                taper_beta=BETA, max_runs=65536)
+    g_a, _ = stream.idg_aw_gridder_stream(shape, mid["p"], mid["a1"],
+                                          mid["a2"], mid["w"], vis_r,
+                                          mid["scr"], **kw_a)
+    d_a, _ = stream.idg_aw_degridder_stream(shape, mid["p"], mid["a1"],
+                                            mid["a2"], mid["w"], grid_mid,
+                                            mid["scr"], **kw_a)
+    lhs = torch.vdot(grid_mid.reshape(-1).to(torch.complex128),
+                     g_a.reshape(-1).to(torch.complex128)).item()
+    rhs = torch.vdot(d_a.to(torch.complex128),
+                     vis_r.to(torch.complex128)).item()
+    err_adj = abs(lhs - rhs) / abs(lhs)
+    print(f"IDG adjoint on the card (phase 3a's records, random screens): "
+          f"|<G, grid(v)> - <degrid(G), v>| / |<G, grid(v)>| = "
+          f"{err_adj:.3e} (bound {ADJOINT_TOL})")
+    if not err_adj <= ADJOINT_TOL:
+        raise AssertionError(f"IDG adjoint identity failed: {err_adj}")
+
+    # ---- 7c. a long run beside short ones (phase 3c's table) --------------
+    lr = long_run_table(torch, dev, shape, nant=16, seed=3)
+    n_lr = lr[0].shape[1]
+    perm = torch.as_tensor(np.random.default_rng(9).permutation(n_lr)
+                           .astype(np.int32), device=dev)
+    lr_d = (lr[0][:3].contiguous(), torch.cat([lr[1], lr[2][-1:]]), *lr[3:],
+            perm)
+    kw_lr = dict(theta=THETA, subgrid=SUBGRID, taper_beta=BETA)
+    k = stream.idg_aw_degrid_from_records_stream(*lr_d, grid_mid,
+                                                 mid["scr"], **kw_lr)
+    pl = stream.degrid_from_records_plain(*lr_d, grid_mid, mid["scr"],
+                                          **kw_lr)
+    k, pl = k.cpu().numpy(), pl.cpu().numpy()
+    err = rel_l2(k, pl)
+    n_occ, longest, mean = run_stats(lr[1], lr[2])
+    n_zero = int((pl == 0).sum())
+    print(f"degrid parity long run (S=64, {n_occ} runs, longest {longest}, "
+          f"mean {mean:.1f}, empty and sentinel entries, random screens, "
+          f"random grid): rel-L2 {err:.3e} (bound {KERNEL_TOL}); records "
+          f"predicting 0 (sentinel runs) kernel {int((k == 0).sum())} plain "
+          f"{n_zero}")
+    if not err <= KERNEL_TOL or not np.array_equal(k == 0, pl == 0):
+        raise AssertionError(f"long-run degrid parity failed: {err}")
+
+    # ---- 7d. the other subgrids ---------------------------------------------
+    for S_c, sup in ((32, 7), (128, SUPPORT)):
+        scr_c = torch.as_tensor(aw_screens_host(mid["ak"], S_c).astype(
+            np.complex64), device=dev)
+        recs_c = idg_aw_degrid_records(shape, mid["p"], mid["a1"],
+                                       mid["a2"], mid["w"], subgrid=S_c,
+                                       support=sup, max_runs=65536)
+        kw_c = dict(theta=THETA, subgrid=S_c, taper_beta=BETA)
+        k = stream.idg_aw_degrid_from_records_stream(*recs_c[:7], grid_mid,
+                                                     scr_c, **kw_c)
+        pl = stream.degrid_from_records_plain(*recs_c[:7], grid_mid, scr_c,
+                                              **kw_c)
+        err = rel_l2(k.cpu().numpy(), pl.cpu().numpy())
+        print(f"degrid parity mid at S={S_c} (support {sup}, random "
+              f"screens, random grid): rel-L2 {err:.3e} (bound "
+              f"{KERNEL_TOL}), n_dropped {int(recs_c[8])} both ways")
+        if not err <= KERNEL_TOL:
+            raise AssertionError(f"S={S_c} degrid parity failed: {err}")
 
     # ---- 7b. full-size unit-screen degrid parity --------------------------
     n_vis = vd.vis.shape[0]
@@ -1037,6 +1116,10 @@ def degrid_phases(torch, dev, card, mid, vd, obs, grid_full):
     ms_prep = timed_ms(torch, lambda: idg_aw_degrid_records(
         g.grid_shape, g.p, zer, zer, g.w, subgrid=SUBGRID, support=SUPPORT,
         max_runs=mr_unit))
+    ms_track = timed_ms(
+        torch, lambda: stream.idg_aw_degrid_from_records_stream(
+            *drecs[:7], d.grid, scr, theta=d.theta, subgrid=SUBGRID,
+            taper_beta=BETA))
     ms_pred = timed_ms(torch, lambda: ds.idg_predict_vis(
         vd, model, theta=THETA, lam=LAM, subgrid=SUBGRID, taper_beta=BETA,
         device=dev))
@@ -1046,30 +1129,34 @@ def degrid_phases(torch, dev, card, mid, vd, obs, grid_full):
     ms_aw_pred = timed_ms(torch, lambda: ds.aw_predict_vis(
         vd_aw, ak, model_aw, theta=THETA, lam=LAM, subgrid=SUBGRID,
         taper_beta=BETA, device=dev))
-    for label, ms, count in (
-            ("degridder kernel (CUDA)", ms_kernel, n_vis),
-            ("degridder plain (PyTorch)", ms_plain, n_vis),
-            ("degrid prep (sort + CSR)", ms_prep, n_vis),
-            ("idg_predict_vis end to end", ms_pred, n_vis),
-            ("aw_idg_image end to end", ms_aw_img, nT),
-            ("aw_predict_vis end to end", ms_aw_pred, nT)):
+    # the parent design's times through the wrapper, from PERF.md §6 and
+    # §5 (the f32 CUDA-core kernel on an H100 80GB HBM3 at 700 W)
+    for label, ms, count, parent in (
+            ("degridder kernel (CUDA)", ms_kernel, n_vis, "1.490-1.523"),
+            ("degridder kernel (CUDA), IDG-AW track shape", ms_track, nT,
+             "1.847 alone"),
+            ("degridder plain (PyTorch)", ms_plain, n_vis, None),
+            ("degrid prep (sort + CSR)", ms_prep, n_vis, None),
+            ("idg_predict_vis end to end", ms_pred, n_vis, None),
+            ("aw_idg_image end to end", ms_aw_img, nT, None),
+            ("aw_predict_vis end to end", ms_aw_pred, nT, None)):
+        was = f"; f32 design before: {parent} ms" if parent else ""
         print(f"time {label}: {ms:.3f} ms = {count / ms / 1e3:.2f} M vis/s "
-              f"[{card}]")
+              f"[{card}]{was}")
     S = SUBGRID
     n_runs = int(((drecs_full[1][1:] > drecs_full[1][:-1])
                   & (drecs_full[4] < PAIR_SHIFT)).sum())
     # per run the adjoint sandwich and the pair screen (12·S², as the
-    # gridder's); records, run tables, order, screens and the padded grid
+    # gridder's); records, run tables, order, screens and the model grid
     # read once, the visibilities written once
-    per_run = [c + 12 * S * S for c in sandwich_flop(S)]
-    ops = 8 * S * S * n_vis + per_run[0] * n_runs
-    io = nbytes(*drecs_full[:7], unit) + (n + 2 * S) ** 2 * 8 + n_vis * 8
-    bound_ms, bound_by = bound(ops, io)
-    print(f"idg degridder bound at S={S}: {n_runs} runs x {per_run[0]:.0f} "
-          f"flop (dense {per_run[1]:.0f}) + 8·S² x {n_vis} records = "
-          f"{ops / 1e9:.2f} GFLOP -> {bound_ms:.3f} ms ({bound_by}; dense "
-          f"count {bound(8 * S * S * n_vis + per_run[1] * n_runs, io)[0]:.3f}"
-          f" ms)")
+    io = nbytes(*drecs_full[:7], unit, grid_full) + n_vis * 8
+    (f32_ms, f32_by), (bound_ms, bound_by, t_tc, t_cuda) = idg_stream_bounds(
+        S, n_vis, n_runs, io)
+    print(f"idg degridder bounds at S={S} ({n_runs} runs, {n_vis} records): "
+          f"f32 {f32_ms:.3f} ms ({f32_by}); tensor core {bound_ms:.3f} ms "
+          f"({bound_by}: split3 products {t_tc:.3f} ms at 989 TFLOP/s, "
+          f"phase factors, weighting and screens {t_cuda:.3f} ms at 67 "
+          f"TFLOP/s, bytes {io / HBM_BPS * 1e3:.3f} ms)")
     return {"launches": launches, "max_abs_err": max_abs, "ms": ms_kernel,
             "plain_ms": ms_plain, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None}, model, truth
@@ -1197,11 +1284,15 @@ def wproj_phases(torch, dev, card, vd, obs, img_idg, model, truth):
     y0, x0, _, _ = wproj.wproj_records(shape_b, qpx, gh, gw, nw * qpx * qpx,
                                        p_sk, wbin_sk)
     _, items, _ = wproj.wproj_tile_plan(y0, x0, gh, gw, shape_b)
+    _, g_items, _ = wproj.wproj_gather_plan(y0, x0, gh, gw, shape_b)
     tiles = torch.unique(items[0]).tolist()
-    if len(tiles) != 1:
-        raise AssertionError(f"skewed case spans tiles {tiles}")
+    g_tiles = torch.unique(g_items[0]).tolist()
+    if len(tiles) != 1 or len(g_tiles) != 1:
+        raise AssertionError(f"skewed case spans tiles {tiles} (scatter), "
+                             f"{g_tiles} (gather)")
     parity(f"skewed ({shape_b[0]}², the benchmark's bank, {n_sk} records "
-           f"in one {wproj.TILE}² tile: {items.shape[1]} warp windows)",
+           f"in one {wproj.TILE}² tile: {items.shape[1]} warp windows of the "
+           f"scatter, {g_items.shape[1]} block windows of the gather)",
            bank_b, shape_b, p_sk, wbin_sk, vis1[:n_sk], grid_b)
 
     # ---- 13. main paths ----------------------------------------------------
@@ -1317,9 +1408,14 @@ def wproj_phases(torch, dev, card, vd, obs, img_idg, model, truth):
         "gather plain (PyTorch)": timed_ms(torch, lambda: degrid_wproj(
             bank_b, grid_b, p_b, wbin_b, chunk=chunk)),
     }
+    # the parent designs' times through the wrappers, from PERF.md §6 (an
+    # H100 80GB HBM3 at 700 W): the gather before its tile sort
+    parent = {"gather kernel (CUDA)": "1.208-1.427"}
     for label, t in ms.items():
+        was = (f"; one warp a record in input order before: {parent[label]} "
+               "ms" if label in parent else "")
         print(f"time {label} at the full-size shape: {t:.3f} ms = "
-              f"{n_b / t / 1e3:.2f} M vis/s [{card}]")
+              f"{n_b / t / 1e3:.2f} M vis/s [{card}]{was}")
     for label, fn in (
             ("scatter kernel (CUDA), main-path records",
              lambda: wproj.wproj_gridder(bank_conj, g.grid_shape, g.p, wbin,
@@ -2089,7 +2185,7 @@ def spectral_phases(torch, dev, card, mid):
         n_live = int(base[5].sum())
         n_runs, longest, mean = run_stats(runs[0], runs[1])
         io_b = nbytes(recs, *runs, scr) + (n + 2 * S) ** 2 * 8
-        _, tc_b = idg_grid_bounds(S, n_live, n_runs, io_b)
+        _, tc_b = idg_stream_bounds(S, n_live, n_runs, io_b)
         report("idg_grid", f"{label} ({n_runs} runs, {n_live} records in "
                f"runs, longest {longest}, mean {mean:.1f})", prep,
                lambda: stream.idg_aw_grid_from_records_stream(

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time the streamed IDG gridder, the bank w-projection scatter and the
-fused AW gridder of this checkout against those of another checkout, in
-one process on one NVIDIA GPU, in turns.
+"""Time the streamed IDG gridder and degridder, the bank w-projection
+scatter and gather and the fused AW gridder of this checkout against those
+of another checkout, in one process on one NVIDIA GPU, in turns.
 
     python3 scripts/compare_kernels.py --other DIR [--reps 7] [--only NAME]
 
@@ -18,13 +18,20 @@ takes it); ``aw_fused_grid`` at the benchmark's fused-AW shape (phase 16b:
 the main path's records at S=64 (phase 3b, unit screens), on channel 0 of
 the cube observation through the IDG prep and through the IDG-AW cube
 raster's ordered prep (phase 25), and at the IDG-AW track shape with
-random screens (phase 9), each with its run table's longest and mean run.
-``--only`` keeps the shapes of one kernel (``idg_grid``, ``wproj_grid``
-or ``aw_grid``).  Per shape the two grids are compared (rel-L2), then
-each wrapper is timed with CUDA events (median of ``--reps`` after a
-warm-up, its prep included) in the order other, this, this, other.  It
-prints the card's name and power limit, then one JSON line per shape with
-both pairs of times.  It needs a CUDA card and stops without one.
+random screens (phase 9), each with its run table's longest and mean run;
+``idg_aw_degrid_from_records_stream`` (``idg_degrid``) on the main path's
+degrid records at S=64 (phase 7b, unit screens) and at the IDG-AW track
+shape (phase 9, random screens), each degridding a random 2400² grid;
+``wproj_degridder`` (``wproj_degrid``) at the bank benchmark's shape
+(phase 12b, its random grid) and on ``w_predict_vis``'s records of the
+512-station observation (the raw bank, a random grid).  ``--only`` keeps
+the shapes of one kernel (``idg_grid``, ``idg_degrid``, ``wproj_grid``,
+``wproj_degrid`` or ``aw_grid``) and builds only their inputs.  Per shape
+the two results are compared (rel-L2), then each wrapper is timed with
+CUDA events (median of ``--reps`` after a warm-up, its prep included) in
+the order other, this, this, other.  It prints the card's name and power
+limit, then one JSON line per shape with both pairs of times.  It needs a
+CUDA card and stops without one.
 """
 
 from __future__ import annotations
@@ -210,12 +217,109 @@ def idg_grid_cases(torch, dev):
     return cases
 
 
+def _random_grid(torch, dev, shape, seed):
+    gen = torch.Generator(dev).manual_seed(seed)
+    return torch.randn(shape, dtype=torch.complex64, device=dev,
+                       generator=gen)
+
+
+def idg_degrid_cases(torch, dev):
+    """The streamed degridder's shapes, ``(label, records, call)``; each
+    label names its run table's occupied runs, longest and mean run."""
+    import numpy as np
+    from chip_smoke import (BETA, LAM, SUBGRID, SUPPORT, THETA,
+                            aw_track_inputs, main_observation, run_stats)
+    from ska_sdp_tpu_torch.kernels import _idg_unit_run_bound
+    from ska_sdp_tpu_torch.kernels.idg_aw_records import (
+        idg_aw_degrid_records)
+    from ska_sdp_tpu_torch.models import dataset as ds
+    from ska_sdp_tpu_torch.types import SINGLE
+
+    S = SUBGRID
+    cases = []
+
+    def add(label, recs, grid, scr, theta):
+        ext = recs[1]
+        n_occ, longest, mean = run_stats(ext[:-1], ext[1:])
+        cases.append((f"{label} ({n_occ} runs, longest {longest}, mean "
+                      f"{mean:.1f})", int(recs[0].shape[1]),
+                      lambda m: m.idg_aw_degrid_from_records_stream(
+                          *recs, grid, scr, theta=theta, subgrid=S,
+                          taper_beta=BETA)))
+
+    # the main path's records, unit screens (phase 7b)
+    _, vd = main_observation()
+    uvw, f, vis = ds.idg_inputs(vd, device=dev)
+    g = ds.idg_grid_inputs(uvw, f, vis, theta=THETA, lam=LAM)
+    zer = torch.zeros((vis.shape[0],), dtype=torch.int32, device=dev)
+    recs = idg_aw_degrid_records(
+        g.grid_shape, g.p, zer, zer, g.w, subgrid=S, support=SUPPORT,
+        max_runs=_idg_unit_run_bound(g.grid_shape, S, SUPPORT))
+    add("idg_degrid, main path", recs[:7],
+        _random_grid(torch, dev, g.grid_shape, 5),
+        torch.ones((1, S, S), dtype=torch.complex64, device=dev), g.theta)
+
+    # the IDG-AW track shape with random screens (phase 9)
+    t = aw_track_inputs()
+    scr = ds._aw_screens(t.ak, S, THETA, LAM, None, SINGLE, dev)
+    uvw, f, vis = ds.idg_inputs(t.vd, device=dev)
+    a1, a2 = (torch.as_tensor(a.astype(np.int32), device=dev)
+              for a in (t.a1, t.a2))
+    d = ds.degrid_inputs(_random_grid(torch, dev, g.grid_shape, 6).real
+                         .contiguous(),
+                         uvw, f, theta=THETA, lam=LAM, subgrid=S,
+                         taper_beta=BETA)
+    recs = idg_aw_degrid_records(
+        tuple(d.grid.shape), d.p, a1, a2, d.w, subgrid=S, support=SUPPORT,
+        max_runs=ds._aw_run_bound(t.vd.antenna1, t.vd.antenna2, t.n))
+    add("idg_degrid, IDG-AW track shape", recs[:7],
+        _random_grid(torch, dev, tuple(d.grid.shape), 7), scr, d.theta)
+    return cases
+
+
+def wproj_degrid_cases(torch, dev):
+    """The bank gather's shapes, ``(label, records, call)``."""
+    from chip_smoke import LAM, THETA, bench_records, main_observation, \
+        w_bank_inputs
+    from ska_sdp_tpu_torch.models import dataset as ds
+    from ska_sdp_tpu_torch.ops import mirror_uvw, uvw_lambda
+    from ska_sdp_tpu_torch.ops.search import find_closest
+
+    # the benchmark's bank shape and its random grid (phase 12b)
+    b = bench_records()
+    bank_b, centers_b, uvw_b, vis_b, grid_b = (
+        torch.as_tensor(b[k], device=dev)
+        for k in ("bank", "centers", "uvw", "vis", "grid"))
+    uvw1, _ = mirror_uvw(uvw_b, vis_b)
+    wbin_b = find_closest(centers_b, uvw1[:, 2])
+    cases = [("wproj_degrid, bench shape", uvw1.shape[0],
+              lambda m: m.wproj_degridder(bank_b, grid_b, uvw1 / LAM,
+                                          wbin_b))]
+
+    # w_predict_vis's records: unmirrored, the raw bank (phase 13)
+    obs, vd = main_observation()
+    centers, build_bank = w_bank_inputs(torch, obs, dev)
+    bank = build_bank().to(torch.complex64)
+    uvw, f, vis = ds.idg_inputs(vd, device=dev)
+    uvw0 = uvw_lambda(f, uvw)
+    wbin0 = find_closest(torch.as_tensor(centers, dtype=torch.float32,
+                                         device=dev), uvw0[:, 2])
+    n = int(round(THETA * LAM))
+    grid = _random_grid(torch, dev, (n, n), 8)
+    cases.append(("wproj_degrid, w_predict_vis records", uvw0.shape[0],
+                  lambda m: m.wproj_degridder(bank, grid, uvw0 / LAM,
+                                              wbin0)))
+    return cases
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", required=True,
                     help="root of the other checkout")
     ap.add_argument("--reps", type=int, default=7)
-    ap.add_argument("--only", choices=("idg_grid", "wproj_grid", "aw_grid"),
+    ap.add_argument("--only", choices=("idg_grid", "idg_degrid",
+                                       "wproj_grid", "wproj_degrid",
+                                       "aw_grid"),
                     help="time only this kernel's shapes")
     args = ap.parse_args()
 
@@ -228,19 +332,23 @@ def main() -> int:
     from ska_sdp_tpu_torch.kernels import aw_fused, wproj
     from ska_sdp_tpu_torch.kernels import idg_aw_stream as stream
 
-    others = dict(zip(("aw_grid", "wproj_grid", "idg_grid"),
-                      load_other(args.other)))
-    mods = {"aw_grid": aw_fused, "wproj_grid": wproj, "idg_grid": stream}
+    aw_o, wproj_o, stream_o = load_other(args.other)
+    others = {"aw_grid": aw_o, "wproj_grid": wproj_o,
+              "wproj_degrid": wproj_o, "idg_grid": stream_o,
+              "idg_degrid": stream_o}
+    mods = {"aw_grid": aw_fused, "wproj_grid": wproj, "wproj_degrid": wproj,
+            "idg_grid": stream, "idg_degrid": stream}
+    case_sets = {"aw_grid": bank_aw_cases, "wproj_grid": bank_aw_cases,
+                "idg_grid": idg_grid_cases, "idg_degrid": idg_degrid_cases,
+                "wproj_degrid": wproj_degrid_cases}
+    wanted = [args.only] if args.only else list(case_sets)
     dev = torch.device("cuda", 0)
     card = smi()
     print(f"nvidia-smi: {card}")
     cases = []
-    if args.only != "idg_grid":
-        cases += bank_aw_cases(torch, dev)
-    if args.only in (None, "idg_grid"):
-        cases += idg_grid_cases(torch, dev)
-    if args.only:
-        cases = [c for c in cases if c[0].startswith(args.only + ",")]
+    for make in dict.fromkeys(case_sets[k] for k in wanted):
+        cases += make(torch, dev)
+    cases = [c for c in cases if c[0].split(",")[0] in wanted]
 
     for label, n, call in cases:
         kind = label.split(",")[0]

@@ -47,13 +47,15 @@
 // C interface for ctypes: wproj_grid() launches on the given stream, does
 // not synchronise, and returns cudaGetLastError().
 
-#include <cub/device/device_radix_sort.cuh>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "wproj_plan.cuh"
 
 namespace {
 
-constexpr int kTile = 32;                 // T; kernels/wproj.py TILE
+using wproj::align256;
+using wproj::key_bits;
+using wproj::kTile;
+using wproj::sort_temp_bytes;
+
 constexpr int kStride = kTile + 1;        // shared row stride
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
@@ -81,31 +83,6 @@ Geometry geometry(int gh, int gw, int H, int W) {
           (gw + kTile - 2) / kTile + 1};
 }
 
-__device__ __forceinline__ float mul_rn(float a, float b) {
-  return __fmul_rn(a, b);
-}
-__device__ __forceinline__ double mul_rn(double a, double b) {
-  return __dmul_rn(a, b);
-}
-__device__ __forceinline__ float add_rn(float a, float b) {
-  return __fadd_rn(a, b);
-}
-__device__ __forceinline__ double add_rn(double a, double b) {
-  return __dadd_rn(a, b);
-}
-
-// ops/coords.py::frac_coord in p's type, one rounding per operation as
-// there: x = n//2 + p·n, cell = floor(x + 0.5/qpx), frac = round((x −
-// cell)·qpx), half to even.
-template <typename F>
-__device__ __forceinline__ void frac_coord(F p, int n, int qpx, F half_q,
-                                           int& cell, int& frac) {
-  const F x = add_rn(mul_rn(p, F(n)), F(n / 2));
-  const F c = floor(add_rn(x, half_q));
-  cell = int(c);
-  frac = int(rint(mul_rn(add_rn(x, -c), F(qpx))));
-}
-
 // Pass 1: the records (kernels/wproj.py::wproj_records) and the sort keys,
 // ky·kx slots per record.
 template <typename F>
@@ -117,15 +94,12 @@ __global__ void wproj_keys_kernel(const F* __restrict__ p,
                                   int* __restrict__ ids) {
   const int64_t b = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
   if (b >= n) return;
-  int x, xf, y, yf;
-  frac_coord(p[3 * b], geo.W, qpx, half_q, x, xf);
-  frac_coord(p[3 * b + 1], geo.H, qpx, half_q, y, yf);
-  const int y0 = y - gh / 2, x0 = x - gw / 2;
+  int y0, x0, k;
+  const bool valid = wproj::place(p, wbin, b, qpx, half_q, nk, gh, gw, geo.H,
+                                  geo.W, y0, x0, k);
   recs[b] = y0;
   recs[n + b] = x0;
-  recs[2 * n + b] = min(max(wbin[b] * (qpx * qpx) + yf * qpx + xf, 0),
-                        nk - 1);
-  const bool valid = y0 > -gh && y0 < geo.H && x0 > -gw && x0 < geo.W;
+  recs[2 * n + b] = k;
   const int ty0 = max(y0, 0) / kTile, tx0 = max(x0, 0) / kTile;
   const int ty1 = (min(y0 + gh, geo.H) - 1) / kTile;
   const int tx1 = (min(x0 + gw, geo.W) - 1) / kTile;
@@ -260,23 +234,6 @@ wproj_grid_kernel(const float2* __restrict__ bank, int gh, int gw,
     if (cnt < 32) break;
   }
   if (cur >= 0) flush(mine, lane, ty0, tx0, tyb, txb, grid, geo.W);
-}
-
-int key_bits(int top) {  // bits that hold 0..top
-  int b = 1;
-  while ((top >> b) != 0) ++b;
-  return b;
-}
-
-size_t align256(size_t x) { return (x + 255) & ~size_t(255); }
-
-size_t sort_temp_bytes(int n, int bits) {
-  size_t bytes = 0;
-  cub::DeviceRadixSort::SortPairs(nullptr, bytes, static_cast<int*>(nullptr),
-                                  static_cast<int*>(nullptr),
-                                  static_cast<int*>(nullptr),
-                                  static_cast<int*>(nullptr), n, 0, bits);
-  return bytes;
 }
 
 // Scratch: the records ([3, n] int32), then keys, sorted keys, ids and

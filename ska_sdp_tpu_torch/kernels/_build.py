@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` file has a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into a shared library at first use, then bound with
 ``ctypes``.  Libraries go to ``ska_sdp_tpu_torch/build/`` (git-ignored),
-named by a hash of the source so an edited source is rebuilt.  No
-compiler runs on import.
+named by a hash of the source and of the headers beside it
+(``csrc/*.cuh``), so an edited source or header is rebuilt.  No compiler
+runs on import.
 """
 
 from __future__ import annotations
@@ -41,13 +42,21 @@ def _nvcc() -> str:
     return found
 
 
+def source_digest(name: str) -> str:
+    """Hash of ``csrc/<name>.cu`` and every ``csrc/*.cuh`` header, which
+    names its library."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return h.hexdigest()[:12]
+
+
 def load(name: str) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` if needed and load it (cached)."""
     if name in _loaded:
         return _loaded[name]
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    lib_path = BUILD_DIR / f"lib{name}_{digest}.so"
+    lib_path = BUILD_DIR / f"lib{name}_{source_digest(name)}.so"
     if not lib_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)

@@ -17,11 +17,11 @@ and zero pair ids both are plain continuous-w IDG.
 
 The wrappers launch the CUDA kernels for CUDA tensors and use the plain
 versions only for CPU tensors; they never fall back.  The plain versions
-and the degridder compute in full float32, the reference's ``exact``
-precision tier; the CUDA gridder runs its products on the tensor cores
-with split-fp16 operands scaled by powers of two (three fp16 passes into
-float32 sums, as the reference's ``split3`` tier splits bf16), ~3e-7 of
-float64.  The reference's
+compute in full float32, the reference's ``exact`` precision tier; both
+CUDA kernels run their products on the tensor cores with split-fp16
+operands scaled by powers of two (three fp16 passes into float32 sums, as
+the reference's ``split3`` tier splits bf16), ~3e-7 of float64.  The
+reference's
 run-major kernels (``idg_aw_pallas.py::_kernel`` and
 ``idg_aw_degrid_pallas.py::_kernel``, selected by
 ``SKA_SDP_TPU_IDG_AW_KERNEL=run``) compute the same two operators, so the
@@ -92,6 +92,17 @@ def _dft_planes(S: int, taper_beta: float, device=None):
     ``csrc/idg_grid.cu``'s tensor-core sandwich, split from the float64
     factor; built once per (S, β, device)."""
     F = _dft_factor64(S, taper_beta, device) * (16 * S)
+    return torch.stack([*_split_f16(F.real), *_split_f16(F.imag)])
+
+
+@functools.lru_cache(maxsize=16)
+def _dft_planes_adjoint(S: int, taper_beta: float, device=None):
+    """The split-fp16 planes ``[4, S, S]`` of ``16·S·Fᴴ`` (``Fᴴ[q, y] =
+    conj(F[y, q])``) for ``csrc/idg_degrid.cu``'s sandwich ``Fᴴ·W·conj(F)``,
+    which reads them as ``Fᴴ`` rows for its first product and as
+    ``conj(F)`` columns for its second; built once per (S, β, device)."""
+    F = (_dft_factor64(S, taper_beta, device).conj().T * (16 * S)
+         ).contiguous()
     return torch.stack([*_split_f16(F.real), *_split_f16(F.imag)])
 
 
@@ -224,8 +235,8 @@ def grid_from_records_plain(recs, starts, ends, y0, x0, ia1, ia2, screens,
 
 
 def pad_grid(grid, subgrid: int):
-    """The degridders' padded complex64 grid ``[N + 2S, Nx + 2S]`` with
-    ``grid`` at offset S."""
+    """The plain degridder's padded complex64 grid ``[N + 2S, Nx + 2S]``
+    with ``grid`` at offset S."""
     N, Nx = grid.shape
     S = subgrid
     gp = torch.zeros((N + 2 * S, Nx + 2 * S), dtype=torch.complex64,
@@ -345,8 +356,9 @@ def _degrid_from_records_cuda(recs, starts, ends, y0, x0, ia1, ia2, order_s,
                               screens, *, grid, theta: float, subgrid: int,
                               taper_beta: float):
     """Launch ``csrc/idg_degrid.cu`` on the current stream; returns the
-    visibilities in original order.  Raises on bad inputs and on a refused
-    launch."""
+    visibilities in original order.  The kernel reads ``grid``, the
+    ``[N, Nx]`` model grid, at the runs' padded origins (zero outside it).
+    Raises on bad inputs and on a refused launch."""
     S = subgrid
     if S not in STREAM_SUBGRIDS:
         raise ValueError(f"subgrid {S} outside the kernel's envelope "
@@ -358,26 +370,25 @@ def _degrid_from_records_cuda(recs, starts, ends, y0, x0, ia1, ia2, order_s,
             or order_s.device != recs.device or not order_s.is_contiguous():
         raise ValueError(f"order_s must be [{n}] contiguous int32 on the "
                          "records' device")
-    HP, WP = grid.shape
+    N, Nx = grid.shape
     if grid.dtype != torch.complex64 or grid.device != recs.device \
             or not grid.is_contiguous():
-        raise ValueError("the padded grid must be contiguous complex64 on "
+        raise ValueError("the model grid must be contiguous complex64 on "
                          "the records' device")
-    N, Nx = HP - 2 * S, WP - 2 * S
     dev = recs.device
     out = torch.zeros((n,), dtype=torch.complex64, device=dev)
-    F, _ = _dft_factors(S, taper_beta, dev)
+    planes = _dft_planes_adjoint(S, taper_beta, dev)
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn, err = bind("idg_degrid", "idg_degrid_stream",
                     [vp, ctypes.c_longlong, vp, vp, vp, vp, vp, vp, ci, vp,
-                     vp, ci, vp, vp, ci, ci, cf, cf, cf, vp, vp])
+                     vp, ci, vp, vp, ci, ci, ci, cf, cf, cf, vp, vp])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(recs.data_ptr(), n, starts.data_ptr(), ends.data_ptr(),
                 y0.data_ptr(), x0.data_ptr(), ia1.data_ptr(), ia2.data_ptr(),
                 starts.shape[0], order_s.data_ptr(), screens.data_ptr(),
-                screens.shape[0], F.data_ptr(), grid.data_ptr(), WP, S,
-                *_phase_scalars(S, theta, N, Nx), out.data_ptr(), stream)
+                screens.shape[0], planes.data_ptr(), grid.data_ptr(), N, Nx,
+                S, *_phase_scalars(S, theta, N, Nx), out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"{DEGRID_KERNEL} launch failed: "
                            f"{err(rc).decode()} ({rc})")
@@ -443,8 +454,8 @@ def idg_aw_degrid_from_records_stream(recs, starts_ext, y0, x0, ia1, ia2,
         n = recs.shape[1]
         return _degrid_from_records_cuda(
             recs, starts_ext[:-1], torch.clamp(starts_ext[1:], max=n), y0,
-            x0, ia1, ia2, order_s, screens, grid=pad_grid(grid, subgrid),
-            **kw)
+            x0, ia1, ia2, order_s, screens,
+            grid=grid.to(torch.complex64).contiguous(), **kw)
     if recs.device.type == "cpu":
         return degrid_from_records_plain(recs, starts_ext, y0, x0, ia1, ia2,
                                          order_s, grid, screens, **kw)

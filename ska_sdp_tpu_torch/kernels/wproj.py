@@ -14,12 +14,15 @@ A record is ``(y0, x0, kidx)``:
     valid = (y0 > −gh) & (y0 < H) & (x0 > −gw) & (x0 < W)
 
 An invalid record has no cell inside the grid and contributes 0 both
-ways.  The gather takes the records in input order, one warp each.  The
-scatter's call first bins each valid record into every ``TILE``×``TILE``
-output tile its in-grid cells touch and sorts the entries by tile on the
-card (:func:`wproj_tile_plan` is the same plan in PyTorch), so that its
-warps accumulate a tile in shared memory and add it to the grid once per
-run.  The TPU's packing (f32-encoded fields, crop margins, interleaved
+ways.  Both kernels build their records and sort them by ``TILE``×``TILE``
+grid tile inside their call, on the card.  The scatter bins each valid
+record into every output tile its in-grid cells touch
+(:func:`wproj_tile_plan` is the same plan in PyTorch), so that its warps
+accumulate a tile in shared memory and add it to the grid once per run.
+The gather keys each valid record once, by the tile of its clamped
+origin (:func:`wproj_gather_plan`), so that a block stages that tile's
+grid region in shared memory once for the run of its records.  The TPU's
+packing (f32-encoded fields, crop margins, interleaved
 lanes) is not carried over.  The wrappers launch the kernels for CUDA
 tensors and use the plain versions of ``ops/gridding.py`` only for CPU
 tensors; they never fall back.  The kernels compute in complex64.
@@ -41,6 +44,7 @@ GRID_KERNEL = "wproj_grid"
 DEGRID_KERNEL = "wproj_degrid"
 TILE = 32           # the scatter's output tile, T×T cells (csrc kTile)
 WINDOW = 256        # sorted (tile, record) entries a warp of the scatter takes
+GATHER_WINDOW = 512     # sorted records a block of the gather takes
 _launches = {GRID_KERNEL: 0, DEGRID_KERNEL: 0}
 
 
@@ -98,6 +102,25 @@ def wproj_tile_plan(y0, x0, gh: int, gw: int, grid_shape,
     return entries, items, ntx
 
 
+def wproj_gather_plan(y0, x0, gh: int, gw: int, grid_shape,
+                      window: int = GATHER_WINDOW):
+    """The gather's work, as it builds it on the card: ``(order, items,
+    ntx)``.  Each record has one key: the ``TILE``×``TILE`` tile
+    (row-major, ``ntx`` across) of its origin clamped to the
+    ``grid_shape`` grid if any of its cells lies inside the grid, else
+    none; ``order`` lists the records by tile, in input order within a
+    tile, those in no tile last, and ``items`` the (tile, first, end) runs
+    of :func:`_plan.binned_items`, inside aligned windows of ``window``
+    positions, one block's each."""
+    H, W = grid_shape
+    nty, ntx = -(-H // TILE), -(-W // TILE)
+    valid = (y0 > -gh) & (y0 < H) & (x0 > -gw) & (x0 < W)
+    key = torch.where(valid, (y0.clamp(min=0) // TILE) * ntx
+                      + x0.clamp(min=0) // TILE, nty * ntx)
+    order, items = binned_items(key, nty * ntx, window)
+    return order, items, ntx
+
+
 def _check(bank, grid, p, wbin, vis=None):
     """The kernels take every input on one device, complex64 data, a 5-d
     bank and a 2-d grid."""
@@ -138,6 +161,22 @@ def _scratch_bytes(n: int, gh: int, gw: int, H: int, W: int) -> int:
     return max(size(n, gh, gw, H, W), 1)
 
 
+@functools.lru_cache(maxsize=64)
+def _gather_scratch_bytes(n: int, H: int, W: int) -> int:
+    """Bytes of scratch ``csrc/wproj_degrid.cu`` needs (its keys and
+    sort)."""
+    cll, ci = ctypes.c_longlong, ctypes.c_int
+    size, _ = bind(DEGRID_KERNEL, "wproj_degrid_scratch_bytes",
+                   [cll, ci, ci], cll)
+    return max(size(n, H, W), 1)
+
+
+def _check_p(p):
+    if p.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"p must be float32 or float64 (got {p.dtype})")
+    return p.contiguous()
+
+
 def _launch_grid(bank, grid_shape, p, wbin, vis, grid):
     """Launch ``csrc/wproj_grid.cu`` (its records and keys, its sort of
     the records by tile and the scatter, with scratch from here), adding
@@ -146,9 +185,7 @@ def _launch_grid(bank, grid_shape, p, wbin, vis, grid):
     nw, qpx, _, gh, gw = bank.shape
     # a lazily conjugated view would hand the kernel the unconjugated data
     bank = bank.resolve_conj().contiguous()
-    if p.dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"p must be float32 or float64 (got {p.dtype})")
-    p = p.contiguous()
+    p = _check_p(p)
     n = p.shape[0]
     vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     scratch = torch.empty(_scratch_bytes(n, gh, gw, H, W),
@@ -163,19 +200,23 @@ def _launch_grid(bank, grid_shape, p, wbin, vis, grid):
 
 
 def _launch_degrid(bank, grid, p, wbin, out):
-    """Launch ``csrc/wproj_degrid.cu``, writing ``out``."""
+    """Launch ``csrc/wproj_degrid.cu`` (its records and keys, its sort of
+    the records by tile and the gather, with scratch from here), writing
+    every entry of ``out``."""
     H, W = grid.shape
     nw, qpx, _, gh, gw = bank.shape
-    nk = nw * qpx * qpx
-    y0, x0, kidx, _ = wproj_records((H, W), qpx, gh, gw, nk, p, wbin)
-    recs = torch.stack([y0, x0, kidx]).contiguous()
     # a lazily conjugated view would hand the kernel the unconjugated data
-    bank = bank.resolve_conj().reshape(nk, gh, gw).contiguous()
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    _run(DEGRID_KERNEL, [vp, ci, ci, ci, vp, ctypes.c_longlong, vp, vp, ci,
-                         ci, vp],
-         bank, nk, gh, gw, recs, recs.shape[1],
-         grid.resolve_conj().contiguous(), out, H, W)
+    bank = bank.resolve_conj().contiguous()
+    p = _check_p(p)
+    n = p.shape[0]
+    vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    scratch = torch.empty(_gather_scratch_bytes(n, H, W), dtype=torch.uint8,
+                          device=grid.device)
+    _run(DEGRID_KERNEL, [vp, ci, ci, ci, ci, vp, ci, vp, cll, vp, cll, vp,
+                         ci, ci, vp, vp],
+         bank, nw, qpx, gh, gw, p, int(p.dtype == torch.float64),
+         wbin.to(torch.int32).contiguous(), n, scratch, scratch.numel(),
+         grid.resolve_conj().contiguous(), H, W, out)
     return out
 
 
@@ -213,9 +254,11 @@ def wproj_degridder(bank: torch.Tensor, grid: torch.Tensor, p: torch.Tensor,
     the raw bank (conjugated inside): the adjoint of
     :func:`wproj_gridder` given the same bank.
 
-    CUDA tensors launch ``csrc/wproj_degrid.cu`` (one warp per record, no
-    atomics, the same result from run to run); CPU tensors take
-    :func:`ops.gridding.degrid_wproj` in chunks of ``chunk``."""
+    CUDA tensors launch ``csrc/wproj_degrid.cu``, which sorts the records
+    by grid tile (:func:`wproj_gather_plan`) and gathers each tile's run
+    from its region staged in shared memory (no atomics, the same result
+    from run to run); CPU tensors take :func:`ops.gridding.degrid_wproj`
+    in chunks of ``chunk``."""
     if grid.is_cuda:
         _check(bank, grid, p, wbin)
         out = torch.empty((p.shape[0],), dtype=torch.complex64,

@@ -11,7 +11,10 @@ between-route bound; the adjoint identity ``<G, grid(v)> = <degrid(G), v>``
 to relative 1e-5, the reference's adjoint bound.
 
 On the CPU the wrapper takes the plain version; the CUDA kernel itself is
-checked by the ``cuda``-marked tests, which skip without a card.
+checked by the ``cuda``-marked tests, which skip without a card.  The
+kernel's split-fp16 tensor-core arithmetic (the adjoint sandwich, the
+contraction over r and the f32 weighting by conj(e_y)) is emulated here on
+the CPU and held to float64 within 1e-6 (``TestSplitF16DegridNumerics``).
 """
 
 from types import SimpleNamespace
@@ -25,7 +28,9 @@ from ska_sdp_tpu_torch.kernels import idg_aw_stream
 from ska_sdp_tpu_torch.kernels.idg_aw_records import (
     from_jax_degrid_records, idg_aw_degrid_records, idg_aw_run_records)
 
-from test_torch_idg_grid import _screens, random_problem, track_problem
+from test_torch_idg_grid import (SPLIT_TOL, _complex3, _exponent, _factor64,
+                                 _screens, _split_c, random_problem,
+                                 track_problem)
 
 torch.set_num_threads(2)
 
@@ -356,6 +361,110 @@ class TestBandFold:
         assert int(nd) == nd_band == 10         # the 10 unfit records
 
 
+def _main_path_phases(S, nb, seed):
+    """``nb`` records at the main path's phase range (|dy|, |dx| < S/2 − 8
+    cells, |w| ≤ 100,000 λ at θ = 0.008: |ph| to ~110 rad): their
+    complex64 phase factors ``(e_y, e_x)``, each ``[nb, S]``."""
+    rng = np.random.default_rng(seed)
+    d = S / 2 - 8
+    dy, dx = (torch.as_tensor(rng.uniform(-d, d, nb).astype(np.float32))
+              for _ in range(2))
+    w = torch.as_tensor(rng.uniform(-1e5, 1e5, nb).astype(np.float32))
+    return idg_aw_stream._phase_factors(S, 0.008, 0.008,
+                                        torch.device("cpu"))(dy, dx, w)
+
+
+def _run_image(S, seed):
+    """A run image ``I = (Fᴴ·W·conj(F)) ∘ (A1·A2)`` of a random window of
+    grid values of order 1e3, complex64 (the kernel holds I in float32)."""
+    rng = np.random.default_rng(seed)
+    W = torch.as_tensor(1e3 * _random_grid(rng, (S, S))).to(torch.complex128)
+    scr = torch.as_tensor(_screens(rng, 2, S)).to(torch.complex128)
+    F = _factor64(S)
+    return ((F.conj().T @ W @ F.conj()) * (scr[0] * scr[1])).to(
+        torch.complex64)
+
+
+class TestSplitF16DegridNumerics:
+    """The CUDA degridder's arithmetic, emulated on the CPU: the sandwich
+    Fᴴ·W·conj(F) on the split-fp16 planes of 16·S·Fᴴ and of W and B scaled
+    by powers of two below 16, and the contraction t = I·conj(E_x) per
+    16-deep step (I scaled per run, E_x by 8), three passes each, float32
+    sums, then the float32 weighting by conj(e_y) and the sum over q;
+    against float64."""
+
+    @pytest.mark.parametrize("S", [32, 64, 128])
+    def test_contraction_and_weighting(self, S):
+        img = _run_image(S, seed=S)
+        ey, ex = _main_path_phases(S, 96, seed=S + 1)
+        want = torch.einsum(
+            "bq,qr,br->b", ey.conj().to(torch.complex128),
+            img.to(torch.complex128), ex.conj().to(torch.complex128))
+        e_i = _exponent(img)
+        I_s = img * 2.0 ** (4 - e_i)
+        E = ex.conj() * 8.0                              # [b, r]
+        got = []
+        for c0 in range(0, ex.shape[0], 32):             # the kernel's chunks
+            t = torch.zeros((S, 32), dtype=torch.complex64)
+            for k0 in range(0, S, 16):                   # its 16-deep steps
+                t += _complex3(_split_c(I_s[:, k0:k0 + 16].contiguous()),
+                               _split_c(E[c0:c0 + 32, k0:k0 + 16].T
+                                        .contiguous()))
+            v = (ey[c0:c0 + 32].conj().T * t).sum(0)      # float32
+            got.append(v * 2.0 ** (e_i - 7))
+        got = torch.cat(got)
+        assert _rel(got.numpy(), want.numpy()) < SPLIT_TOL
+
+    @pytest.mark.parametrize("S", [32, 64, 128])
+    def test_adjoint_sandwich(self, S):
+        rng = np.random.default_rng(200 + S)
+        W = torch.as_tensor(1e3 * _random_grid(rng, (S, S)))
+        F = _factor64(S)
+        want = F.conj().T @ W.to(torch.complex128) @ F.conj()
+        P = idg_aw_stream._dft_planes_adjoint(S, 12.0).float()  # 16·S·Fᴴ
+        h = ((P[0], P[1]), (P[2], P[3]))
+        hT = tuple(tuple(x.T for x in pair) for pair in h)
+        e_w = _exponent(W)
+        B = _complex3(h, _split_c(W * 2.0 ** (4 - e_w)))
+        e_b = _exponent(B)
+        T = _complex3(_split_c(B * 2.0 ** (4 - e_b)), hT)
+        got = T * 2.0 ** (e_b - 4) / (256 * S * S) * 2.0 ** (e_w - 4)
+        assert _rel(got.numpy(), want.numpy()) < SPLIT_TOL
+
+    @pytest.mark.parametrize("S", [32, 64, 128])
+    def test_adjoint_planes_split_the_float64_factor(self, S):
+        H = _factor64(S).conj().T * (16 * S)
+        P = idg_aw_stream._dft_planes_adjoint(S, 12.0)
+        assert P.dtype == torch.float16 and P.shape == (4, S, S)
+        assert P.is_contiguous()
+        for k, part in ((0, H.real), (2, H.imag)):
+            assert float(part.abs().max()) <= 16
+            assert torch.equal(P[k], part.to(torch.float16))
+            err = (P[k].double() + P[k + 1].double() - part).abs().max()
+            assert float(err) <= 2.0 ** -21 * float(part.abs().max())
+
+
+def _long_run_records(S, seed, device):
+    """A run table with one run of 25,000 records among 500 short ones,
+    empty and sentinel entries, on a 256² grid: ``(recs, starts_ext, y0,
+    x0, ia1, ia2, order_s)`` as ``idg_aw_degrid_records`` gives them."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(1, 40, 501)
+    lengths[rng.random(501) < 0.2] = 0
+    lengths[0] = 25000
+    rng.shuffle(lengths)
+    n, R, d = int(lengths.sum()), lengths.shape[0], S / 2 - 8
+    recs = np.stack([rng.uniform(-d, d, n), rng.uniform(-d, d, n),
+                     rng.uniform(-250.0, 250.0, n)]).astype(np.float32)
+    ext = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32)
+    ia = rng.integers(0, 6, (2, R)).astype(np.int32)
+    ia[0, rng.random(R) < 0.1] = 2**15          # sentinel runs predict 0
+    y0 = rng.integers(0, N + S, R).astype(np.int32)
+    x0 = rng.integers(0, N + S, R).astype(np.int32)
+    order = rng.permutation(n).astype(np.int32)
+    return _t(recs, ext, y0, x0, ia[0], ia[1], order, device=device)
+
+
 @pytest.mark.cuda
 class TestCudaKernel:
     @pytest.mark.parametrize("S,support", [(32, 9), (64, 15), (128, 15)])
@@ -398,3 +507,20 @@ class TestCudaKernel:
         rhs = np.vdot(d.cpu().numpy().astype(np.complex128),
                       vis.astype(np.complex128))
         assert abs(lhs - rhs) <= ADJ_TOL * abs(lhs)
+
+    @pytest.mark.parametrize("S", [32, 64, 128])
+    def test_long_run_on_card(self, cuda_device, S):
+        """One run of 25,000 records among 500 short ones: the contraction
+        sums over a fixed depth whatever the run's length."""
+        recs = _long_run_records(S, 120 + S, cuda_device)
+        rng = np.random.default_rng(S)
+        scr = torch.as_tensor(_screens(rng, 6, S), device=cuda_device)
+        grid = torch.as_tensor(_random_grid(rng, (N, N)), device=cuda_device)
+        got = idg_aw_stream.idg_aw_degrid_from_records_stream(
+            *recs, grid, scr, theta=THETA, subgrid=S)
+        plain = idg_aw_stream.degrid_from_records_plain(
+            *recs, grid, scr, theta=THETA, subgrid=S)
+        torch.cuda.synchronize()
+        got, plain = got.cpu().numpy(), plain.cpu().numpy()
+        assert _rel(got, plain) < TOL
+        np.testing.assert_array_equal(got[plain == 0], 0)

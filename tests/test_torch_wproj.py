@@ -13,6 +13,10 @@ Bounds:
 * exact: the scatter's tile binning against a numpy enumeration of each
   record's in-grid cells; 1e-12 (complex128): a plain accumulation in tile
   order against ``convgrid_wproj``;
+* exact: the gather's plan (a permutation of the records by the tile of
+  their clamped origin, the invalid last); 1e-12 (complex128): a gather
+  through the plan from each tile's staged region, written back to input
+  indices, against ``degrid_wproj``;
 * atol 2e-4, rtol 1e-4 (float32, the JAX tests' own bound): the plain
   versions against the resident and the tiled Pallas kernels, including
   out-of-bounds edge records and odd and non-square grids.  The tiled
@@ -355,6 +359,88 @@ class TestTilePlan:
         assert _rel(got.numpy(), want.numpy()) <= 1e-12
 
 
+class TestGatherPlan:
+    """The records' order and the tile regions of ``csrc/wproj_degrid.cu``,
+    on the CPU."""
+
+    CASES = [((256, 256), 15, 15, True), ((100, 70), 7, 9, False),
+             ((130, 97), 32, 32, True), ((211, 640), 15, 15, True)]
+
+    @staticmethod
+    def _plan(shape, gh, gw, edge, seed, n=600, window=64):
+        rng = np.random.default_rng(seed)
+        pr = problem(rng, n, qpx=4, edge=edge)
+        if edge:    # beyond every edge: the corners and both sides of each
+            pr.p[::3, :2] *= -1
+        y0, x0, kidx, valid = wproj.wproj_records(shape, 4, gh, gw, 32,
+                                                  _t(pr.p), _t(pr.wbin))
+        order, items, ntx = wproj.wproj_gather_plan(y0, x0, gh, gw, shape,
+                                                    window)
+        return rng, pr, (y0, x0, kidx, valid), order, items, ntx
+
+    @pytest.mark.parametrize("shape,gh,gw,edge", CASES)
+    def test_order_is_a_tile_sorted_permutation(self, shape, gh, gw, edge):
+        """Every record once; keys (the tile of the origin clamped to the
+        grid) non-decreasing; input order within a tile; the invalid
+        records last; the items cover the valid positions inside aligned
+        windows."""
+        H, W = shape
+        T = wproj.TILE
+        _, _, (y0, x0, _, valid), order, items, ntx = self._plan(
+            shape, gh, gw, edge, seed=gh + gw + H)
+        n = y0.shape[0]
+        assert ntx == -(-W // T)
+        assert torch.equal(torch.sort(order).values, torch.arange(n))
+        ntiles = -(-H // T) * ntx
+        key = torch.where(valid, (y0.clamp(min=0) // T) * ntx
+                          + x0.clamp(min=0) // T, ntiles)[order]
+        assert bool((key[1:] >= key[:-1]).all())
+        same = key[1:] == key[:-1]
+        assert bool((order[1:][same] > order[:-1][same]).all())
+        n_valid = int(valid.sum())
+        assert bool(valid[order[:n_valid]].all())
+        assert not bool(valid[order[n_valid:]].any())
+        if edge and gh < 20:   # records wholly past the edges are in none
+            assert 0 < n_valid < n
+        covered = torch.zeros(n, dtype=torch.int64)
+        for tile, first, end in items.T.tolist():
+            assert first // 64 == (end - 1) // 64
+            assert bool((key[first:end] == tile).all())
+            covered[first:end] += 1
+        assert torch.equal(covered, (torch.arange(n) < n_valid).long())
+
+    @pytest.mark.parametrize("shape,gh,gw,edge", CASES)
+    def test_gather_through_the_plan_matches_plain(self, shape, gh, gw,
+                                                   edge):
+        """Each item's records gathered from its tile's (T + gh − 1) ×
+        (T + gw − 1) region, zero beyond the grid and below row and column
+        0, and written back to their input indices, give
+        ``degrid_wproj``."""
+        H, W = shape
+        T = wproj.TILE
+        rng, pr, (y0, x0, kidx, _), order, items, ntx = self._plan(
+            shape, gh, gw, edge, seed=7 * gh + gw)
+        bank = _t(_bank(rng, gh, gw))
+        G = _t(_cplx(rng, shape))
+        taps = bank.reshape(32, gh, gw)
+        got = torch.zeros(y0.shape[0], dtype=torch.complex128)
+        pad = torch.zeros((H + T + gh, W + T + gw), dtype=torch.complex128)
+        pad[:H, :W] = G
+        for tile, first, end in items.T.tolist():
+            R0, C0 = (tile // ntx) * T, (tile % ntx) * T
+            region = pad[R0:R0 + T + gh - 1, C0:C0 + T + gw - 1]
+            for r in order[first:end].tolist():
+                ry, rx = int(y0[r]) - R0, int(x0[r]) - C0
+                rows = torch.arange(gh) + ry
+                cols = torch.arange(gw) + rx
+                cells = region[rows.clamp(min=0)[:, None],
+                               cols.clamp(min=0)[None, :]]
+                cells = cells * ((rows >= 0)[:, None] & (cols >= 0)[None, :])
+                got[r] = torch.sum(cells * torch.conj(taps[kidx[r]]))
+        want = degrid_wproj(bank, G, _t(pr.p), _t(pr.wbin))
+        assert _rel(got.numpy(), want.numpy()) <= 1e-12
+
+
 class TestPallasInterpret:
     """The port's plain versions against the reference's TPU kernels in
     interpret mode, float32."""
@@ -420,6 +506,21 @@ class TestWrappers:
         rec[stray] = rec[stray].to("meta")
         with pytest.raises(ValueError, match="one device"):
             wproj._check(bank, grid, **rec)
+
+    def test_build_digest_covers_the_headers(self, tmp_path, monkeypatch):
+        """A kernel's library is named by its source and every header in
+        ``csrc/``, so an edited header rebuilds the kernels."""
+        from ska_sdp_tpu_torch.kernels import _build
+
+        (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+        (tmp_path / "h.cuh").write_text("// one\n")
+        monkeypatch.setattr(_build, "CSRC", tmp_path)
+        first = _build.source_digest("k")
+        assert _build.source_digest("k") == first
+        (tmp_path / "h.cuh").write_text("// two\n")
+        assert _build.source_digest("k") != first
+        (tmp_path / "k.cu").write_text('#include "h.cuh"\n// more\n')
+        assert _build.source_digest("k") not in (first,)
 
     def test_launch_counts_reset(self):
         wproj._launches[wproj.GRID_KERNEL] = 3
@@ -531,3 +632,48 @@ class TestCudaKernels:
                                   _t(pr.p, cuda_device),
                                   _t(pr.wbin, cuda_device),
                                   _t(pr.vis, cuda_device))
+
+    @staticmethod
+    def _gather_parity(device, bank, shape, p, wbin):
+        rng = np.random.default_rng(16)
+        G = _t(_cplx(rng, shape, np.complex64), device)
+        args = [_t(x, device) for x in (bank, p, wbin)]
+        wproj.reset_launch_count()
+        v = kernels.wproj_degridder(args[0], G, *args[1:])
+        torch.cuda.synchronize()
+        assert wproj.launch_count(wproj.DEGRID_KERNEL) == 1
+        want = degrid_wproj(args[0], G, *args[1:])
+        assert _rel(v.cpu().numpy(), want.cpu().numpy()) < CUDA_TOL
+        nw, qpx, _, gh, gw = bank.shape
+        valid = wproj.wproj_records(shape, qpx, gh, gw, nw * qpx * qpx,
+                                    args[1], args[2])[3]
+        assert torch.all(v[~valid] == 0) and torch.all(v[valid] != 0)
+
+    @pytest.mark.parametrize("gh,gw", [(7, 7), (15, 15), (32, 32), (7, 32),
+                                       (48, 48)])
+    def test_gather_supports_on_card(self, cuda_device, gh, gw):
+        """The gather's lane mapping and its staged region at each support
+        it serves, with records past every edge; 48² takes two column
+        segments a row and a region above 48 KB of shared memory."""
+        rng = np.random.default_rng(20 + gh + gw)
+        pr = problem(rng, 30000, nw=4, qpx=4, lo=-0.55, hi=0.55,
+                     dtype=np.complex64)
+        bank = _bank(rng, gh, gw, nw=4, qpx=4, dtype=np.complex64)
+        self._gather_parity(cuda_device, bank, (301, 211), pr.p, pr.wbin)
+
+    def test_gather_one_tile_on_card(self, cuda_device):
+        """262,144 records inside one 32² tile of the gather: one tile's run
+        spread over many blocks, each staging the same region."""
+        rng = np.random.default_rng(17)
+        shape = (512, 512)
+        p = np.zeros((1 << 18, 3))
+        p[:, :2] = rng.uniform(8 / 512, 20 / 512, (1 << 18, 2))
+        wbin = rng.integers(0, 4, 1 << 18).astype(np.int32)
+        y0, x0, _, _ = wproj.wproj_records(shape, 4, 15, 15, 64, _t(p),
+                                           _t(wbin))
+        order, items, _ = wproj.wproj_gather_plan(y0, x0, 15, 15, shape)
+        assert len(set(items[0].tolist())) == 1
+        assert items.shape[1] == (1 << 18) // wproj.GATHER_WINDOW
+        bank = _bank(rng, 15, 15, nw=4, qpx=4, dtype=np.complex64)
+        self._gather_parity(cuda_device, bank, shape, p.astype(np.float32),
+                            wbin)
