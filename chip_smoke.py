@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Chip smoke test of ska_sdp_tpu_torch: the ported imaging, prediction and
 spectral-cube paths end to end on one NVIDIA GPU, through the hand-written
-CUDA kernels (the streamed IDG gridder and degridder, the bank w-projection
-scatter and gather, the fused AW gridder, the fixed-tile IDG gridder and
-degridder).
+CUDA kernels (the streamed IDG gridder and degridder, which also serve the
+fixed-tile IDG route, the bank w-projection scatter and gather, the fused
+AW gridder).
 
     python3 chip_smoke.py
 
@@ -13,10 +13,10 @@ result line):
 1. device: a CUDA card is required (no CPU fallback); versions and the
    card's name and power limit as ``nvidia-smi`` reports them;
 2. build: compile ``ska_sdp_tpu_torch/csrc/idg_grid.cu``,
-   ``csrc/idg_degrid.cu``, ``csrc/wproj_grid.cu``, ``csrc/wproj_degrid.cu``,
-   ``csrc/aw_grid.cu``, ``csrc/idg_tile_grid.cu`` and
-   ``csrc/idg_tile_degrid.cu`` with nvcc for sm_90a, one nvcc each, all
-   started together; print the gridder's build time and ptxas resource use;
+   ``csrc/idg_degrid.cu``, ``csrc/wproj_grid.cu``, ``csrc/wproj_degrid.cu``
+   and ``csrc/aw_grid.cu`` with nvcc for sm_90a, one nvcc each, all started
+   together; print the gridder's build time and the ptxas resource use of
+   its S = 32, 64 and 128 instances;
 3. gridder parity on the card against the plain PyTorch version on the
    same inputs: a mid-size IDG-AW case (512² grid, S=64, 16 antennas of
    track data, random screens), the same records at S=32 (support 7) and
@@ -34,7 +34,8 @@ result line):
    its plain version, the run prep, and ``idg_image`` end to end; the run
    table's longest and mean run, and the gridder's two bounds (f32 on the
    CUDA cores, and the tensor-core bound of its split-fp16 products);
-6. build: the degridder's build time and ptxas resource use;
+6. build: the degridder's build time and the ptxas resource use of its
+   S = 32, 64 and 128 instances;
 7. degridder parity on the card against its plain version: the mid-size
    IDG-AW case of phase 3 degridding a random grid at S=64, 32 (support
    7) and 128, phase 3c's table (one run of 25,000 records among 500 short
@@ -120,39 +121,49 @@ result line):
     and ``aw_fused_plain`` at shapes (b) and (d), the tables (pair remap,
     pair table, w-tap spectra) at 64 and 512 stations, and ``aw_image`` end
     to end;
-19. build: the fixed-tile IDG kernels' build times and ptxas resource use;
-20. fixed-tile parity on the card, each kernel against its plain version
-    on the same records: 512² (θ=0.008) at S=16 (support 7), 32, 48 and
-    128 (support 15), 200,000 random records with |p| ≤ 0.53 and |w| ≤
-    100,000 λ and a random grid, and the main path's 1,046,528 records at
-    S=32 (phase 4's weighted mirrored visibilities; phase 8's model grid);
-    grid and visibility rel-L2 ≤ 5e-5, off-grid records predicting 0;
+19. build: the ptxas resource use of the streamed kernels' instances for
+    the other even subgrids (side 16·⌈S/16⌉), which the fixed-tile route
+    at S ≠ 32, 64, 128 reaches, beside the two builds' times;
+20. fixed-tile route parity on the card: ``idg_tile.idg_grid_from_records``
+    and ``idg_degrid_from_records`` (the occupied subgrids as runs of the
+    streamed kernels, ``tile_runs``) against the streamed plain versions on
+    the same run table: 512² (θ=0.008) at S=16 (support 7), 32, 48 and 128
+    (support 15), 200,000 random records with |p| ≤ 0.53 and |w| ≤ 100,000
+    λ and a random grid, and the main path's 1,046,528 records at S=32
+    (phase 4's weighted mirrored visibilities; phase 8's model grid); grid
+    and visibility rel-L2 ≤ 5e-5, off-grid records predicting 0, and one
+    launch of each streamed kernel through the route;
 21. the S=32 main paths on phase 4's observation, each with the launch
-    counts reset just before: ``idg_image(subgrid=32)`` (at least one
-    fixed-tile launch and no streamed one, phase 4's image checks, rel-L2
-    ≤ 1e-4 over the central 75% against the pipeline on the plain
-    fixed-tile gridder; printed without a bound, against phase 4's S=64
-    image), ``idg_predict_vis(subgrid=32)`` of phase 8's model (rel-L2 ≤
-    5e-5 against the plain fixed-tile degridder; printed beside the
-    reference's S=32 bound of 3e-4, against phase 8's direct DFT), and the
+    counts reset just before: ``idg_image(subgrid=32)`` (the fixed-tile
+    route launched the streamed gridder, every streamed launch through
+    it; phase 4's image checks, rel-L2 ≤ 1e-4 over the central 75%
+    against the pipeline on the route's plain gridder; printed without a
+    bound, against phase 4's S=64 image), ``idg_predict_vis(subgrid=32)``
+    of phase 8's model (the route launched the streamed degridder; rel-L2
+    ≤ 5e-5 against the route's plain degridder and ≤ 3e-4, the
+    reference's S=32 bound, against phase 8's direct DFT), and the
     stage-timed ``_idg_staged`` at S=64 in memory (image within 1e-4 of
-    phase 4's over the central 75%, at least one fixed-tile launch, the
-    four stage times);
-22. fixed-tile times (CUDA events, median of 7 after a warm-up) at S=32
-    on the main path: each kernel and its plain version, the preps, the
-    degrid prologue, and ``idg_image`` and ``idg_predict_vis`` end to end;
+    phase 4's over the central 75%, the route launched the streamed
+    gridder, the four stage times);
+22. fixed-tile route times (CUDA events, median of 7 after a warm-up) at
+    S=32 on the main path: each wrapper (run table, kernel and, for the
+    degridder, its window sandwiches) and its plain version, the run table
+    alone, the preps, and ``idg_image`` and ``idg_predict_vis`` end to
+    end; the streamed kernels' bounds for the route's records and runs;
 23. spectral kernel parity on the card (the fold evidence for the
     run-major #5): phase 3a's 512² IDG-AW records with random screens and
     4 channels of random visibilities at r ∈ {0.97, 0.99, 1.01, 1.03},
     through the multi prep and each channel's update, every channel's
     records through ``idg_grid.cu`` and its plain version (drift 7: nothing
     masked; drift 0: records masked and counted), and the fixed-tile multi
-    prep at S=32 through ``idg_tile_grid.cu``; grid rel-L2 ≤ 5e-5;
+    prep at S=32 through the route onto ``idg_grid.cu``; grid rel-L2 ≤
+    5e-5;
 24. the cube main paths at full width on bench cell 8's observation (64
     stations, 520 times, 8 channels, seed 6: 1,048,320 records, 8,386,560
     channel-visibilities, 2400²), each with the launch counts reset just
     before: ``idg_cube`` at S=64 (one group, the streamed branch) and at
-    S=32 (the fixed-tile branch), ``w_cube`` with phase 13's kind of bank,
+    S=32 (the fixed-tile branch: the route's launches of the streamed
+    gridder), ``w_cube`` with phase 13's kind of bank,
     and ``aw_idg_cube`` at S=64 on the benchmark's 64-station track records
     as a real [520, 2016] raster of 8 channels (the ordered prep); each
     launches its kernel once per channel, is finite, drops nothing (S=32
@@ -189,6 +200,7 @@ import io
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -206,6 +218,7 @@ BF16_FLOPS = 989e12      # H100 SXM dense bf16 / fp16 tensor-core peak
 HBM_BPS = 3.35e12        # H100 SXM device-memory rate
 IMAGE_TOL = 1e-4         # image contract over the central 75%
 TRUTH_TOL = 2e-4         # predict vs direct DFT (the reference's IDG bound)
+TRUTH_TOL_S32 = 3e-4     # the same at S=32 (the reference's S=32 bound)
 C = 299792458.0
 REPS = 7
 
@@ -268,10 +281,26 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def print_ptxas(build_log, name):
+def print_ptxas(build_log, name, padded=None):
+    """The compiler's register and spill lines of ``name``'s kernels, each
+    under its entry's name (``<SP, kPad>`` for the streamed IDG kernels'
+    instances); ``padded`` keeps only the instances with that kPad."""
+    keep = True
     for line in build_log.get(name, "").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+        if "Compiling entry function" in line:
+            sym = line.split("'")[1]
+            m = re.search(r"(idg_(?:de)?grid_kernel)ILi(\d+)ELb(\d)E", sym)
+            keep = padded is None or (
+                m.group(3) == str(int(padded)) if m else not padded)
+            if keep:
+                k = re.search(r"\d([a-z][a-z_]*_kernel|[A-Z][a-z]\w*?Kernel)",
+                              sym)
+                label = (f"{m.group(1)}<{m.group(2)}, "
+                         f"{'true' if m.group(3) == '1' else 'false'}>"
+                         if m else k.group(1) if k else sym[:60])
+                print(f"  ptxas: {label}")
+        elif keep and ("registers" in line or "spill" in line):
+            print(f"    {line.strip()}")
 
 
 def track_records(nbl, ntime, nchan, n_grid, rng):
@@ -594,13 +623,13 @@ def main() -> int:
         return time.perf_counter() - t
 
     kernels_cu = ("idg_grid", "idg_degrid", "wproj_grid", "wproj_degrid",
-                  "aw_grid", "idg_tile_grid", "idg_tile_degrid")
+                  "aw_grid")
     pool = ThreadPoolExecutor(max_workers=len(kernels_cu))
     builds = {k: pool.submit(build, k) for k in kernels_cu}
     pool.shutdown(wait=False)
     print(f"build: idg_grid.cu for sm_90a in "
           f"{builds['idg_grid'].result():.1f} s")
-    print_ptxas(_build.build_log, "idg_grid")
+    print_ptxas(_build.build_log, "idg_grid", padded=False)
 
     def rr(shape, p, a1, a2, w, vis, max_runs, nant):
         return idg_aw_run_records(shape, p, a1, a2, w, vis.real, vis.imag,
@@ -774,7 +803,7 @@ def main() -> int:
     # ---- 6.-10. the degridder and the predict and IDG-AW paths ------------
     print(f"build: idg_degrid.cu for sm_90a in "
           f"{builds['idg_degrid'].result():.1f} s (started with idg_grid.cu)")
-    print_ptxas(_build.build_log, "idg_degrid")
+    print_ptxas(_build.build_log, "idg_degrid", padded=False)
     degrid, model, truth = degrid_phases(torch, dev, card, mid, vd, obs,
                                          k_full)
     for k in ("wproj_grid", "wproj_degrid"):
@@ -787,10 +816,10 @@ def main() -> int:
           f"{builds['aw_grid'].result():.1f} s (started with idg_grid.cu)")
     print_ptxas(_build.build_log, "aw_grid")
     aw = aw_phases(torch, dev, card, vd, obs, img_w)
-    for k in ("idg_tile_grid", "idg_tile_degrid"):
-        print(f"build: {k}.cu for sm_90a in {builds[k].result():.1f} s "
-              "(started with idg_grid.cu)")
-        print_ptxas(_build.build_log, k)
+    for k in ("idg_grid", "idg_degrid"):
+        print(f"build: {k}.cu's instances for the other even subgrids "
+              f"(side 16·⌈S/16⌉), in its {builds[k].result():.1f} s")
+        print_ptxas(_build.build_log, k, padded=True)
     tile = tile_phases(torch, dev, card, vd, obs, img, model, truth)
     spectral_phases(torch, dev, card, mid)
 
@@ -1667,11 +1696,43 @@ def aw_phases(torch, dev, card, vd, obs, img_w):
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
+def tile_route_plain(torch, recs, starts, shape, S, *, theta, order=None,
+                     grid=None):
+    """The fixed-tile route's plain version on the records' device: the
+    run table of ``idg_tile.tile_runs`` through the streamed plain gridder
+    (cropped as the wrapper crops it) or, with ``order`` and ``grid``, the
+    streamed plain degridder."""
+    from ska_sdp_tpu_torch.kernels import idg_aw_stream as stream
+    from ska_sdp_tpu_torch.kernels import idg_tile
+
+    r = idg_tile.tile_runs(starts, shape, S)
+    unit = torch.ones((1, S, S), dtype=torch.complex64, device=recs.device)
+    kw = dict(theta=theta, subgrid=S, taper_beta=BETA)
+    if grid is None:
+        g = stream.grid_from_records_plain(
+            recs, r.starts_ext[:-1], r.starts_ext[1:], r.y0, r.x0, r.pair,
+            r.pair, unit, grid_shape=shape, **kw)
+        return g[S:S + shape[0], S:S + shape[1]]
+    return stream.degrid_from_records_plain(
+        recs, r.starts_ext, r.y0, r.x0, r.pair, r.pair, order, grid, unit,
+        **kw)
+
+
+def route_launches(stream, idg_tile, which):
+    """``(fixed-tile route launches, streamed launches)`` of the gridder
+    (``which="grid"``) or degridder since the last resets."""
+    g = which == "grid"
+    return (idg_tile.launch_count(idg_tile.GRID_KERNEL if g
+                                  else idg_tile.DEGRID_KERNEL),
+            stream.launch_count(stream.GRID_KERNEL if g
+                                else stream.DEGRID_KERNEL))
+
+
 def tile_phases(torch, dev, card, vd, obs, img64, model, truth):
     """Phases 20-22.  ``vd``/``obs`` are the main path's observation,
     ``img64`` phase 4's S=64 ``idg_image``, ``model`` and ``truth`` phase
     8's snapped-source model and its float64 direct-DFT visibilities.
-    Returns the two fixed-tile kernels' entries of the ``kernels`` line."""
+    Returns the fixed-tile route's two entries of the ``kernels`` line."""
     from ska_sdp_tpu_torch.kernels import idg_aw_stream as stream
     from ska_sdp_tpu_torch.kernels import idg_tile
     from ska_sdp_tpu_torch.models import dataset as ds
@@ -1680,58 +1741,57 @@ def tile_phases(torch, dev, card, vd, obs, img64, model, truth):
     S32 = 32
     kw32 = dict(subgrid=S32, taper_beta=BETA)
 
-    def grid_both(shape, p, w, vis, S, support, theta):
-        recs, starts = idg_tile.idg_bin_records(
-            shape, p, w, vis.real, vis.imag, subgrid=S, support=support)
-        geo = idg_tile.tile_geometry(shape, S)
-        kw = dict(theta=theta, subgrid=S, taper_beta=BETA)
-        k = idg_tile.idg_grid_from_records(recs, starts, shape, **kw)
-        pl = idg_tile.grid_from_records_plain(
-            recs, starts, grid_shape=shape, **kw)[
-                geo.T:geo.T + shape[0], geo.T:geo.T + shape[1]]
-        torch.cuda.synchronize()
-        return recs, starts, k, pl
-
-    def degrid_both(p, w, grid, S, support, theta):
-        shape = tuple(grid.shape)
-        recs, starts, order, valid = idg_tile.prep_with_order(
-            shape, p, w, subgrid=S, support=support)
-        k = idg_tile.idg_degrid_from_records(recs, starts, order, grid,
-                                             theta=theta, subgrid=S,
-                                             taper_beta=BETA)
-        a_sub, occ = idg_tile.tile_images(grid, starts, subgrid=S,
-                                          taper_beta=BETA)
-        pl = idg_tile.degrid_from_records_plain(
-            recs, starts, order, occ, a_sub, grid_shape=shape, theta=theta,
-            subgrid=S)
-        torch.cuda.synchronize()
-        return (recs, starts, order, valid, a_sub, occ), k, pl
+    def reset():
+        stream.reset_launch_count()
+        idg_tile.reset_launch_count()
 
     def parity(label, shape, S, support, theta, g_in, d_in):
-        recs, starts, gk, gp_t = grid_both(shape, *g_in, S, support, theta)
-        drecs, vk, vp = degrid_both(*d_in, S, support, theta)
+        p, w, vis = g_in
+        recs, starts = idg_tile.idg_bin_records(
+            shape, p, w, vis.real, vis.imag, subgrid=S, support=support)
+        kw = dict(theta=theta, subgrid=S, taper_beta=BETA)
+        reset()
+        gk = idg_tile.idg_grid_from_records(recs, starts, shape, **kw)
+        torch.cuda.synchronize()
+        lg = route_launches(stream, idg_tile, "grid")
+        gp_t = tile_route_plain(torch, recs, starts, shape, S, theta=theta)
+        dp, dw, grid = d_in
+        drecs, dstarts, order, valid = idg_tile.prep_with_order(
+            shape, dp, dw, subgrid=S, support=support)
+        reset()
+        vk = idg_tile.idg_degrid_from_records(drecs, dstarts, order, grid,
+                                              **kw)
+        torch.cuda.synchronize()
+        ld = route_launches(stream, idg_tile, "degrid")
+        vp = tile_route_plain(torch, drecs, dstarts, shape, S, theta=theta,
+                              order=order, grid=grid)
         gk, gp, vk, vp = (x.cpu().numpy() for x in (gk, gp_t, vk, vp))
         err_g, err_v = rel_l2(gk, gp), rel_l2(vk, vp)
-        valid = drecs[3].cpu().numpy()
+        valid = valid.cpu().numpy()
         n_occ = int((starts[1:] > starts[:-1]).sum())
         print(f"tile parity {label}: grid rel-L2 {err_g:.3e}, vis rel-L2 "
               f"{err_v:.3e} (bound {KERNEL_TOL}); {int(valid.sum())} of "
               f"{valid.shape[0]} records on the grid, {n_occ} of "
-              f"{starts.shape[0] - 1} subgrids occupied; nonzero "
-              f"predictions kernel {int((vk != 0).sum())} plain "
-              f"{int((vp != 0).sum())}")
+              f"{starts.shape[0] - 1} subgrids occupied (the runs); "
+              f"nonzero predictions kernel {int((vk != 0).sum())} plain "
+              f"{int((vp != 0).sum())}; launches (route, streamed) grid "
+              f"{lg}, degrid {ld}")
         if not (err_g <= KERNEL_TOL and err_v <= KERNEL_TOL):
             raise AssertionError(f"tile parity {label} failed: {err_g}, "
                                  f"{err_v}")
         if np.any(vk[~valid] != 0) or np.any(vp[~valid] != 0):
             raise AssertionError(f"tile parity {label}: off-grid records "
                                  "predicted nonzero")
-        return dict(recs=recs, starts=starts, drecs=drecs, gp=gp_t, vp=vp,
-                    max_abs_g=float(np.abs(gk - gp).max()),
-                    max_abs_v=float(np.abs(vk - vp).max()), n_occ=n_occ)
+        if lg != (1, 1) or ld != (1, 1):
+            raise AssertionError(f"tile parity {label}: the route did not "
+                                 f"launch the streamed kernels once: {lg}, "
+                                 f"{ld}")
+        return dict(recs=recs, starts=starts, drecs=(drecs, dstarts, order),
+                    gp=gp_t, vp=vp, max_abs_g=float(np.abs(gk - gp).max()),
+                    max_abs_v=float(np.abs(vk - vp).max()), n_occ=n_occ,
+                    n_docc=int((dstarts[1:] > dstarts[:-1]).sum()))
 
     # ---- 20a. 512² at S = 16, 32, 48, 128, records beyond the edges ------
-    mid_lam = 64000                                     # 512² at θ=0.008
     rng = np.random.default_rng(50)
     n_mid = 200_000
     p_mid = rng.uniform(-0.53, 0.53, (n_mid, 3)).astype(np.float32)
@@ -1760,24 +1820,23 @@ def tile_phases(torch, dev, card, vd, obs, img64, model, truth):
                   (g.p, g.w, g.vis), (d.p, d.w, d.grid))
 
     # ---- 21a. idg_image at S=32 --------------------------------------------
-    stream.reset_launch_count()
-    idg_tile.reset_launch_count()
+    reset()
     res = ds.idg_image(vd, theta=THETA, lam=LAM, device=dev, **kw32)
     torch.cuda.synchronize()
-    launches_g = idg_tile.launch_count(idg_tile.GRID_KERNEL)
-    launches_stream = stream.launch_count(stream.GRID_KERNEL)
+    launches_g, launches_stream = route_launches(stream, idg_tile, "grid")
     img = res.image.cpu().numpy()
     n = img.shape[0]
     print(f"S=32 main path: idg_image {n}² from {n_vis} vis, image max "
           f"{res.image_max:.6g}, n_dropped {res.n_dropped}, fixed-tile "
-          f"launches {launches_g}, streamed launches {launches_stream}")
+          f"route launches {launches_g}, streamed gridder launches "
+          f"{launches_stream}")
     if not np.isfinite(img).all():
         raise AssertionError("S=32 image has non-finite pixels")
     if res.n_dropped != 0:
         raise AssertionError(f"S=32 imaging dropped {res.n_dropped}")
-    if launches_g < 1 or launches_stream != 0:
-        raise AssertionError("idg_image(subgrid=32) did not run on the "
-                             "fixed-tile kernel alone")
+    if launches_g < 1 or launches_stream != launches_g:
+        raise AssertionError("idg_image(subgrid=32) did not launch the "
+                             "streamed gridder through the fixed-tile route")
     iy, ix = np.unravel_index(np.argmax(crop75(img)), crop75(img).shape)
     iy, ix = iy + n // 8, ix + n // 8
     srcs = obs["sources"]
@@ -1796,81 +1855,81 @@ def tile_phases(torch, dev, card, vd, obs, img64, model, truth):
     img_plain = ds._idg_finish(main["gp"], g.n, shape[0], g.crop_lo, S32,
                                BETA).cpu().numpy()
     err_img = rel_l2(crop75(img), crop75(img_plain))
-    print(f"  image vs plain fixed-tile pipeline: rel-L2 {err_img:.3e} over "
-          f"the central 75% (bound {IMAGE_TOL}); vs phase 4's S=64 image "
-          f"(no bound): {rel_l2(crop75(img), crop75(img64)):.3e}")
+    print(f"  image vs the route's plain pipeline: rel-L2 {err_img:.3e} "
+          f"over the central 75% (bound {IMAGE_TOL}); vs phase 4's S=64 "
+          f"image (no bound): {rel_l2(crop75(img), crop75(img64)):.3e}")
     if not err_img <= IMAGE_TOL:
         raise AssertionError(f"S=32 image parity failed: {err_img}")
 
     # ---- 21b. idg_predict_vis at S=32 --------------------------------------
-    stream.reset_launch_count()
-    idg_tile.reset_launch_count()
+    reset()
     pred = ds.idg_predict_vis(vd, model, theta=THETA, lam=LAM, device=dev,
                               **kw32)
     torch.cuda.synchronize()
-    launches_d = idg_tile.launch_count(idg_tile.DEGRID_KERNEL)
-    launches_stream = stream.launch_count(stream.DEGRID_KERNEL)
+    launches_d, launches_stream = route_launches(stream, idg_tile, "degrid")
     err_pred = rel_l2(pred.vis.cpu().numpy(), main["vp"])
     got = pred.vis.to(torch.complex128)
     err_truth = float(torch.linalg.norm(got - truth)
                       / torch.linalg.norm(truth))
     print(f"S=32 predict main path: idg_predict_vis of phase 8's model to "
           f"{n_vis} vis, peak |vis| {pred.peak:.6g}, n_dropped "
-          f"{pred.n_dropped}, fixed-tile launches {launches_d}, streamed "
-          f"launches {launches_stream}; vs plain fixed-tile degridder "
-          f"rel-L2 {err_pred:.3e} (bound {KERNEL_TOL}); vs float64 direct "
-          f"DFT {err_truth:.3e} (the reference's S=32 bound 3e-4)")
+          f"{pred.n_dropped}, fixed-tile route launches {launches_d}, "
+          f"streamed degridder launches {launches_stream}; vs the route's "
+          f"plain degridder rel-L2 {err_pred:.3e} (bound {KERNEL_TOL}); vs "
+          f"float64 direct DFT {err_truth:.3e} (bound {TRUTH_TOL_S32}, the "
+          "reference's S=32 bound)")
     if not torch.isfinite(pred.vis).all():
         raise AssertionError("S=32 prediction has non-finite values")
     if pred.n_dropped != 0:
         raise AssertionError(f"S=32 predict dropped {pred.n_dropped}")
-    if launches_d < 1 or launches_stream != 0:
-        raise AssertionError("idg_predict_vis(subgrid=32) did not run on "
-                             "the fixed-tile kernel alone")
+    if launches_d < 1 or launches_stream != launches_d:
+        raise AssertionError("idg_predict_vis(subgrid=32) did not launch "
+                             "the streamed degridder through the fixed-tile "
+                             "route")
     if not err_pred <= KERNEL_TOL:
         raise AssertionError(f"S=32 predict parity failed: {err_pred}")
+    if not err_truth <= TRUTH_TOL_S32:
+        raise AssertionError(f"S=32 predict vs direct DFT: {err_truth}")
 
     # ---- 21c. the stage-timed pipeline at S=64 -----------------------------
     timer = PhaseTimer()
-    idg_tile.reset_launch_count()
+    reset()
     img_st, _ = ds._idg_staged(uvw, f, vis, theta=THETA, lam=LAM,
                                subgrid=SUBGRID, taper_beta=BETA, timer=timer)
     torch.cuda.synchronize()
-    launches_st = idg_tile.launch_count(idg_tile.GRID_KERNEL)
+    launches_st, launches_sst = route_launches(stream, idg_tile, "grid")
     err_st = rel_l2(crop75(img_st.cpu().numpy()), crop75(img64))
     stages = ", ".join(f"{k[7:]} {v * 1e3:.3f} ms"
                        for k, v in timer.times.items()
                        if k.startswith("device/") and "+compile" not in k)
     print(f"staged S=64 (_idg_staged, in memory): vs phase 4's idg_image "
           f"rel-L2 {err_st:.3e} over the central 75% (bound {IMAGE_TOL}), "
-          f"fixed-tile launches {launches_st} (warm-up + timed); stages: "
-          f"{stages} [{card}]")
-    if launches_st < 1:
-        raise AssertionError("_idg_staged did not launch the fixed-tile "
-                             "gridder")
+          f"fixed-tile route launches {launches_st}, streamed "
+          f"{launches_sst} (warm-up + timed); stages: {stages} [{card}]")
+    if launches_st < 1 or launches_sst != launches_st:
+        raise AssertionError("_idg_staged did not launch the streamed "
+                             "gridder through the fixed-tile route")
     if not err_st <= IMAGE_TOL:
         raise AssertionError(f"staged image parity failed: {err_st}")
 
     # ---- 22. times at S=32 on the main path --------------------------------
     recs, starts = main["recs"], main["starts"]
-    drecs, dstarts, order, _, a_sub, occ = main["drecs"]
-    gkw = dict(grid_shape=shape, theta=g.theta, subgrid=S32)
-    dkw = dict(grid_shape=shape, theta=d.theta, subgrid=S32)
+    drecs, dstarts, order = main["drecs"]
     it = idg_tile
     ms = {}
     for label, fn in (
-            ("gridder kernel (CUDA)", lambda: it.idg_grid_from_records(
+            ("gridder (route + CUDA)", lambda: it.idg_grid_from_records(
                 recs, starts, shape, theta=g.theta, **kw32)),
-            ("gridder plain (PyTorch)", lambda: it.grid_from_records_plain(
-                recs, starts, taper_beta=BETA, **gkw)),
-            ("degridder kernel (CUDA)",
-             lambda: it._degrid_from_records_cuda(
-                 drecs, dstarts, order, occ, a_sub, **dkw)),
-            ("degridder plain (PyTorch)",
-             lambda: it.degrid_from_records_plain(
-                 drecs, dstarts, order, occ, a_sub, **dkw)),
-            ("degrid prologue (window sandwiches)", lambda: it.tile_images(
-                d.grid, dstarts, **kw32)),
+            ("gridder plain (PyTorch)", lambda: tile_route_plain(
+                torch, recs, starts, shape, S32, theta=g.theta)),
+            ("degridder (route + CUDA, window sandwiches included)",
+             lambda: it.idg_degrid_from_records(
+                 drecs, dstarts, order, d.grid, theta=d.theta, **kw32)),
+            ("degridder plain (PyTorch)", lambda: tile_route_plain(
+                torch, drecs, dstarts, shape, S32, theta=d.theta,
+                order=order, grid=d.grid)),
+            ("run table (tile_runs)", lambda: it.tile_runs(
+                starts, shape, S32)),
             ("gridder prep (bin + sort)", lambda: it.idg_bin_records(
                 shape, g.p, g.w, g.vis.real, g.vis.imag, subgrid=S32)),
             ("degridder prep (bin + sort + order)",
@@ -1884,53 +1943,54 @@ def tile_phases(torch, dev, card, vd, obs, img64, model, truth):
         print(f"time tile {label}: {t:.3f} ms = {n_vis / t / 1e3:.2f} M "
               f"vis/s [{card}]")
 
-    # bounds from this run's inputs: 8·S² flop per record in a subgrid and
-    # the least sandwich count per occupied subgrid (the gridder's; the
-    # degridder's is its prologue, outside the kernel), each input read
-    # once and each output written once
+    # bounds from this run's inputs, as the streamed kernels' (their
+    # function, with unit screens): per record 8·S², per run (occupied
+    # subgrid) the sandwich and the screens; the gridder reads its records
+    # and starts and writes the S-padded grid, the degridder reads its
+    # records, starts, order and the model grid and writes the visibilities
     n_in, n_din = int(starts[-1]), int(dstarts[-1])
-    HP, WP = idg_tile.tile_geometry(shape, S32).padded_shape
-    sw = sandwich_flop(S32)
-    g_io = nbytes(recs, starts) + HP * WP * 8
-    g_ops = 8 * S32 ** 2 * n_in + sw[0] * main["n_occ"]
-    g_bound = bound(g_ops, g_io)
-    g_dense = bound(8 * S32 ** 2 * n_in + sw[1] * main["n_occ"], g_io)[0]
-    print(f"tile gridder sandwich at S=32: {main['n_occ']} subgrids x "
-          f"{sw[0]:.0f} flop (dense {sw[1]:.0f}, FFT {sw[2]:.0f}); dense "
-          f"count {g_dense:.3f} ms")
-    d_bound = bound(8 * S32 ** 2 * n_din,
-                    nbytes(drecs, dstarts, order, occ, a_sub) + n_vis * 8)
-    for label, (b_ms, b_by), ops in (("gridder", g_bound, g_ops),
-                                     ("degridder", d_bound,
-                                      8 * S32 ** 2 * n_din)):
-        print(f"tile {label} bound at S=32: {ops / 1e9:.2f} GFLOP -> "
-              f"{b_ms:.3f} ms ({b_by}); the kernel at "
-              f"{100 * b_ms / ms[label + ' kernel (CUDA)']:.1f}% of it")
+    g_io = nbytes(recs, starts) + (shape[0] + 2 * S32) ** 2 * 8
+    d_io = nbytes(drecs, dstarts, order, d.grid) + n_vis * 8
+    bounds = {}
+    for label, n_rec, n_run, io_b in (
+            ("gridder", n_in, main["n_occ"], g_io),
+            ("degridder", n_din, main["n_docc"], d_io)):
+        (f_ms, f_by), (b_ms, b_by, t_tc, t_cuda) = idg_stream_bounds(
+            S32, n_rec, n_run, io_b)
+        bounds[label] = (b_ms, b_by)
+        t = ms[next(k for k in ms if k.startswith(label + " (route"))]
+        print(f"tile {label} bounds at S=32 ({n_rec} records in {n_run} "
+              f"runs): f32 {f_ms:.3f} ms ({f_by}); tensor core {b_ms:.3f} "
+              f"ms ({b_by}: split3 products {t_tc:.3f} ms, phase factors, "
+              f"screens and sandwiches on the CUDA cores {t_cuda:.3f} ms, "
+              f"bytes {io_b / HBM_BPS * 1e3:.3f} ms); the route at "
+              f"{100 * b_ms / t:.1f}% of it")
     return [{
         "name": idg_tile.GRID_KERNEL, "route": "cuda",
-        "source": "ska_sdp_tpu_torch/csrc/idg_tile_grid.cu",
+        "source": "ska_sdp_tpu_torch/csrc/idg_grid.cu",
         "replaces": "ska_sdp_tpu/kernels/idg_pallas.py:49",
         "launches": launches_g, "max_abs_err": main["max_abs_g"],
-        "ms": ms["gridder kernel (CUDA)"],
+        "ms": ms["gridder (route + CUDA)"],
         "plain_ms": ms["gridder plain (PyTorch)"],
-        "bound_ms": g_bound[0], "bound_by": g_bound[1], "library_ms": None,
+        "bound_ms": bounds["gridder"][0], "bound_by": bounds["gridder"][1],
+        "library_ms": None,
     }, {
         "name": idg_tile.DEGRID_KERNEL, "route": "cuda",
-        "source": "ska_sdp_tpu_torch/csrc/idg_tile_degrid.cu",
+        "source": "ska_sdp_tpu_torch/csrc/idg_degrid.cu",
         "replaces": "ska_sdp_tpu/kernels/idg_degrid_pallas.py:41",
         "launches": launches_d, "max_abs_err": main["max_abs_v"],
-        "ms": ms["degridder kernel (CUDA)"],
+        "ms": ms["degridder (route + CUDA, window sandwiches included)"],
         "plain_ms": ms["degridder plain (PyTorch)"],
-        "bound_ms": d_bound[0], "bound_by": d_bound[1], "library_ms": None,
+        "bound_ms": bounds["degridder"][0],
+        "bound_by": bounds["degridder"][1], "library_ms": None,
     }]
 
 
 @contextlib.contextmanager
 def plain_kernels(torch):
     """Route the cube entries (``models/spectral.py``) through the plain
-    versions of their three kernels, on the tensors' own device."""
+    versions of their kernels, on the tensors' own device."""
     from ska_sdp_tpu_torch.kernels import idg_aw_stream as stream
-    from ska_sdp_tpu_torch.kernels import idg_tile
     from ska_sdp_tpu_torch.models import spectral as sp
     from ska_sdp_tpu_torch.ops.gridding import convgrid_wproj
 
@@ -1942,11 +2002,8 @@ def plain_kernels(torch):
         return g[subgrid:subgrid + shape[0], subgrid:subgrid + shape[1]]
 
     def tile(recs, starts, shape, *, theta, subgrid, taper_beta):
-        T = subgrid // 2
-        g = idg_tile.grid_from_records_plain(
-            recs, starts, grid_shape=shape, theta=theta, subgrid=subgrid,
-            taper_beta=taper_beta)
-        return g[T:T + shape[0], T:T + shape[1]]
+        return tile_route_plain(torch, recs, starts, shape, subgrid,
+                                theta=theta)
 
     def scatter(bank_conj, shape, p, wbin, vis, chunk):
         return convgrid_wproj(bank_conj, torch.zeros(
@@ -2032,22 +2089,27 @@ def spectral_phases(torch, dev, card, mid):
         shape, mid["p"], mid["w"], vis4.real, vis4.imag, subgrid=32,
         support=SUPPORT)
     errs, masked = [], []
+    stream.reset_launch_count()
+    idg_tile.reset_launch_count()
     for c, r in enumerate(ratios):
         recs, nm = idg_tile.idg_records_for_channel(base, vis_s[c], r,
                                                     subgrid=32)
         k = idg_tile.idg_grid_from_records(recs, starts, shape, theta=THETA,
                                            subgrid=32, taper_beta=BETA)
-        pl = cut(idg_tile.grid_from_records_plain(
-            recs, starts, grid_shape=shape, theta=THETA, subgrid=32,
-            taper_beta=BETA), 16)
+        pl = tile_route_plain(torch, recs, starts, shape, 32, theta=THETA)
         errs.append(rel_l2(k.cpu().numpy(), pl.cpu().numpy()))
         masked.append(int(nm))
-    print(f"spectral parity, fixed-tile multi prep (512², S=32): "
-          f"idg_tile_grid vs plain rel-L2 per channel "
+    launches = route_launches(stream, idg_tile, "grid")
+    print(f"spectral parity, fixed-tile multi prep (512², S=32, "
+          f"{int((starts[1:] > starts[:-1]).sum())} runs): the route on "
+          f"idg_grid vs plain rel-L2 per channel "
           f"{', '.join(f'{e:.3e}' for e in errs)} (bound {KERNEL_TOL}); "
-          f"n_masked per channel {masked}")
+          f"n_masked per channel {masked}; launches (route, streamed) "
+          f"{launches}")
     if max(errs) > KERNEL_TOL:
         raise AssertionError(f"fixed-tile spectral parity failed: {errs}")
+    if launches != (len(ratios), len(ratios)):
+        raise AssertionError(f"fixed-tile spectral launches {launches}")
     del vis4, base, vis_s
 
     # ---- 24. the cube main paths at full width ----------------------------
@@ -2061,18 +2123,20 @@ def spectral_phases(torch, dev, card, mid):
                "idg_tile_grid": (idg_tile, idg_tile.GRID_KERNEL),
                "wproj_grid": (wproj, wproj.GRID_KERNEL)}
     kw = dict(theta=THETA, lam=LAM, device=dev)
+    # each cube's launch counts: one a channel of its kernel, none of the
+    # others; at S=32 the fixed-tile route launches the streamed gridder
     cubes = {
         "idg_cube S=64": (lambda: sp.idg_cube(vd_c, subgrid=S,
                                               taper_beta=BETA, **kw),
-                          "idg_grid", True),
+                          ("idg_grid",), True),
         "idg_cube S=32": (lambda: sp.idg_cube(vd_c, subgrid=32,
                                               taper_beta=BETA, **kw),
-                          "idg_tile_grid", True),
+                          ("idg_tile_grid", "idg_grid"), True),
         "w_cube": (lambda: sp.w_cube(vd_c, bank, centers, **kw),
-                   "wproj_grid", False),
+                   ("wproj_grid",), False),
         "aw_idg_cube S=64": (lambda: sp.aw_idg_cube(vd_aw, ak, subgrid=S,
                                                     taper_beta=BETA, **kw),
-                             "idg_grid", True),
+                             ("idg_grid",), True),
     }
     results = {}
     for label, (fn, kernel, central) in cubes.items():
@@ -2100,7 +2164,7 @@ def spectral_phases(torch, dev, card, mid):
               f"{', central 75%' if central else ''})")
         if not np.isfinite(cube).all():
             raise AssertionError(f"{label} has non-finite pixels")
-        if launches[kernel] != nch or sum(launches.values()) != nch:
+        if launches != {k: nch if k in kernel else 0 for k in counted}:
             raise AssertionError(f"{label} launches {launches}, not {nch} "
                                  f"of {kernel}")
         if drops != ref.dropped.tolist():
@@ -2205,13 +2269,16 @@ def spectral_phases(torch, dev, card, mid):
     recs, _ = idg_tile.idg_records_for_channel(base, vis_s[0], r0,
                                                subgrid=32)
     n_occ = int((starts[1:] > starts[:-1]).sum())
-    HP, WP = idg_tile.tile_geometry((n, n), 32).padded_shape
-    report("idg_tile_grid", f"idg_cube S=32 ({n_occ} subgrids)", prep32,
+    n_in = int(starts[-1])
+    io_t = nbytes(recs, starts) + (n + 64) ** 2 * 8
+    _, tc_t = idg_stream_bounds(32, n_in, n_occ, io_t)
+    report("idg_tile_grid", f"idg_cube S=32 ({n_occ} subgrids, the "
+           "route on idg_grid)", prep32,
            lambda: idg_tile.idg_grid_from_records(
                recs, starts, (n, n), theta=THETA, subgrid=32,
                taper_beta=BETA),
-           8 * 32 * 32 * int(starts[-1]) + sandwich_flop(32)[0] * n_occ,
-           nbytes(recs, starts) + HP * WP * 8)
+           8 * 32 * 32 * n_in + (sandwich_flop(32)[0] + 12 * 32 * 32)
+           * n_occ, io_t, tc_t[:2])
 
     uvw1, vis1, _, _ = group_inputs(vd_c, results["w_cube"])
     bank_c = torch.conj(bank.to(torch.complex64)).resolve_conj()

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Time the streamed IDG gridder and degridder, the bank w-projection
-scatter and gather and the fused AW gridder of this checkout against those
-of another checkout, in one process on one NVIDIA GPU, in turns.
+"""Time the streamed IDG gridder and degridder, the fixed-tile IDG route,
+the bank w-projection scatter and gather and the fused AW gridder of this
+checkout against those of another checkout, in one process on one NVIDIA
+GPU, in turns.
 
-    python3 scripts/compare_kernels.py --other DIR [--reps 7] [--only NAME]
+    python3 scripts/compare_kernels.py --other DIR [--reps 7] [--only NAME...]
 
 ``DIR`` holds a checkout of another commit; its ``ska_sdp_tpu_torch/``
 package is loaded under another name and builds its CUDA kernels into its
@@ -24,14 +25,25 @@ degrid records at S=64 (phase 7b, unit screens) and at the IDG-AW track
 shape (phase 9, random screens), each degridding a random 2400² grid;
 ``wproj_degridder`` (``wproj_degrid``) at the bank benchmark's shape
 (phase 12b, its random grid) and on ``w_predict_vis``'s records of the
-512-station observation (the raw bank, a random grid).  ``--only`` keeps
-the shapes of one kernel (``idg_grid``, ``idg_degrid``, ``wproj_grid``,
-``wproj_degrid`` or ``aw_grid``) and builds only their inputs.  Per shape
+512-station observation (the raw bank, a random grid).  The fixed-tile
+route's public ``idg_tile.idg_grid_from_records`` and
+``idg_degrid_from_records`` (``idg_tile``; the degridder with whatever
+runs before its kernel, such as window sandwiches) at S=32 on the main
+path's records (phases 20b and 22; the degridder on phase 8's kind of
+model, a random grid here), on channel 0 of the cube observation (the
+multi prep at S=32, as ``idg_cube`` grids it, and that channel's
+degrid prep) and at 512² with S=48 (phase 20a's records).  ``--only``
+keeps the shapes of the kernels it names (``idg_grid``, ``idg_degrid``,
+``idg_tile``, ``wproj_grid``, ``wproj_degrid``, ``aw_grid``) and builds
+only their inputs.  Per shape
 the two results are compared (rel-L2), then each wrapper is timed with
 CUDA events (median of ``--reps`` after a warm-up, its prep included) in
-the order other, this, this, other.  It prints the card's name and power
-limit, then one JSON line per shape with both pairs of times.  It needs a
-CUDA card and stops without one.
+the order other, this, this, other, and its device time per call is read
+from ``torch.profiler`` over ``--reps`` calls (the sum of its kernels,
+copies and memsets: what the card spends, where the wrapper's time also
+holds the host's).  It prints the card's name and power limit, then one
+JSON line per shape with both pairs of times.  It needs a CUDA card and
+stops without one.
 """
 
 from __future__ import annotations
@@ -48,8 +60,8 @@ sys.path.insert(0, ROOT)
 
 
 def load_other(root: str):
-    """The other checkout's ``(aw_fused, wproj, idg_aw_stream)`` kernel
-    modules."""
+    """The other checkout's ``(aw_fused, wproj, idg_aw_stream, idg_tile)``
+    kernel modules."""
     pkg = os.path.join(os.path.abspath(root), "ska_sdp_tpu_torch")
     name = "other_ska_sdp_tpu_torch"
     spec = importlib.util.spec_from_file_location(
@@ -59,7 +71,8 @@ def load_other(root: str):
     sys.modules[name] = mod
     spec.loader.exec_module(mod)
     return tuple(importlib.import_module(f"{name}.kernels.{k}")
-                 for k in ("aw_fused", "wproj", "idg_aw_stream"))
+                 for k in ("aw_fused", "wproj", "idg_aw_stream",
+                           "idg_tile"))
 
 
 def bank_aw_cases(torch, dev):
@@ -277,6 +290,75 @@ def idg_degrid_cases(torch, dev):
     return cases
 
 
+def idg_tile_cases(torch, dev):
+    """The fixed-tile route's shapes, ``(label, records, call)``; each label
+    names its occupied subgrids (the runs), longest and mean."""
+    import numpy as np
+    from chip_smoke import (BETA, LAM, SUPPORT, THETA, cube_group_inputs,
+                            cube_observation, main_observation, run_stats)
+    from ska_sdp_tpu_torch.kernels import idg_tile
+    from ska_sdp_tpu_torch.models import dataset as ds
+    from ska_sdp_tpu_torch.models import spectral as sp
+
+    cases = []
+
+    def add(label, shape, S, theta, p, w, vis=None, recs=None, starts=None):
+        """Both wrappers at one shape: the gridder on ``vis`` (or on given
+        ``recs``/``starts``), the degridder on a random grid."""
+        if recs is None:
+            recs, starts = idg_tile.idg_bin_records(
+                shape, p, w, vis.real, vis.imag, subgrid=S, support=SUPPORT)
+        kw = dict(theta=theta, subgrid=S, taper_beta=BETA)
+        n_occ, longest, mean = run_stats(starts[:-1], starts[1:])
+        cases.append((f"idg_tile, gridder, {label} (S={S}, {n_occ} runs, "
+                      f"longest {longest}, mean {mean:.1f})",
+                      int(recs.shape[1]),
+                      lambda m: m.idg_grid_from_records(recs, starts, shape,
+                                                        **kw)))
+        drecs, dstarts, order, _ = idg_tile.prep_with_order(
+            shape, p, w, subgrid=S, support=SUPPORT)
+        grid = _random_grid(torch, dev, shape, 9)
+        n_occ, longest, mean = run_stats(dstarts[:-1], dstarts[1:])
+        cases.append((f"idg_tile, degridder, {label} (S={S}, {n_occ} runs, "
+                      f"longest {longest}, mean {mean:.1f})",
+                      int(drecs.shape[1]),
+                      lambda m: m.idg_degrid_from_records(
+                          drecs, dstarts, order, grid, **kw)))
+
+    # the main path's records at S=32 (phases 20b, 22)
+    _, vd = main_observation()
+    uvw, f, vis = ds.idg_inputs(vd, device=dev)
+    g = ds.idg_grid_inputs(uvw, f, vis, theta=THETA, lam=LAM)
+    add("main path", g.grid_shape, 32, g.theta, g.p, g.w, g.vis)
+
+    # channel 0 of the cube observation at S=32: the multi prep, as
+    # idg_cube grids it (phase 25), and that channel's degrid prep
+    vd_c = cube_observation()[1]
+    res = sp.idg_cube(vd_c, subgrid=32, taper_beta=BETA, theta=THETA,
+                      lam=LAM, device=dev)
+    uvw1, vis1, r0, _ = cube_group_inputs(torch, dev, vd_c, res.groups[0])
+    n = int(round(THETA * LAM))
+    base, vis_s, starts = idg_tile.idg_bin_records_multi(
+        (n, n), uvw1 / LAM, uvw1[:, 2], vis1.real, vis1.imag, subgrid=32,
+        support=SUPPORT)
+    recs, _ = idg_tile.idg_records_for_channel(base, vis_s[0], r0,
+                                               subgrid=32)
+    add("cube channel 0", (n, n), 32, THETA, uvw1 * r0 / LAM,
+        uvw1[:, 2] * r0, recs=recs, starts=starts)
+
+    # 512² at S=48 (phase 20a's records)
+    rng = np.random.default_rng(50)
+    n_mid = 200_000
+    p_mid = rng.uniform(-0.53, 0.53, (n_mid, 3)).astype(np.float32)
+    w_mid = rng.uniform(-1e5, 1e5, n_mid).astype(np.float32)
+    vis_mid = (rng.standard_normal(n_mid)
+               + 1j * rng.standard_normal(n_mid)).astype(np.complex64)
+    pm, wm, vm = (torch.as_tensor(a, device=dev)
+                  for a in (p_mid, w_mid, vis_mid))
+    add("512²", (512, 512), 48, THETA, pm, wm, vm)
+    return cases
+
+
 def wproj_degrid_cases(torch, dev):
     """The bank gather's shapes, ``(label, records, call)``."""
     from chip_smoke import LAM, THETA, bench_records, main_observation, \
@@ -312,15 +394,34 @@ def wproj_degrid_cases(torch, dev):
     return cases
 
 
+def device_ms(torch, fn, reps: int) -> float:
+    """Device milliseconds per call of ``fn``: ``torch.profiler``'s device
+    events summed over ``reps`` calls after a warm-up, divided by
+    ``reps``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(e, "self_device_time_total", 0)
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    return total / reps / 1e3
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", required=True,
                     help="root of the other checkout")
     ap.add_argument("--reps", type=int, default=7)
-    ap.add_argument("--only", choices=("idg_grid", "idg_degrid",
-                                       "wproj_grid", "wproj_degrid",
-                                       "aw_grid"),
-                    help="time only this kernel's shapes")
+    ap.add_argument("--only", nargs="+",
+                    choices=("idg_grid", "idg_degrid", "idg_tile",
+                             "wproj_grid", "wproj_degrid", "aw_grid"),
+                    help="time only these kernels' shapes")
     args = ap.parse_args()
 
     import torch
@@ -329,19 +430,20 @@ def main() -> int:
         print("error: no CUDA device visible", file=sys.stderr)
         return 1
     from chip_smoke import rel_l2, smi, timed_ms
-    from ska_sdp_tpu_torch.kernels import aw_fused, wproj
+    from ska_sdp_tpu_torch.kernels import aw_fused, idg_tile, wproj
     from ska_sdp_tpu_torch.kernels import idg_aw_stream as stream
 
-    aw_o, wproj_o, stream_o = load_other(args.other)
+    aw_o, wproj_o, stream_o, tile_o = load_other(args.other)
     others = {"aw_grid": aw_o, "wproj_grid": wproj_o,
               "wproj_degrid": wproj_o, "idg_grid": stream_o,
-              "idg_degrid": stream_o}
+              "idg_degrid": stream_o, "idg_tile": tile_o}
     mods = {"aw_grid": aw_fused, "wproj_grid": wproj, "wproj_degrid": wproj,
-            "idg_grid": stream, "idg_degrid": stream}
+            "idg_grid": stream, "idg_degrid": stream, "idg_tile": idg_tile}
     case_sets = {"aw_grid": bank_aw_cases, "wproj_grid": bank_aw_cases,
                 "idg_grid": idg_grid_cases, "idg_degrid": idg_degrid_cases,
+                "idg_tile": idg_tile_cases,
                 "wproj_degrid": wproj_degrid_cases}
-    wanted = [args.only] if args.only else list(case_sets)
+    wanted = args.only or list(case_sets)
     dev = torch.device("cuda", 0)
     card = smi()
     print(f"nvidia-smi: {card}")
@@ -359,10 +461,14 @@ def main() -> int:
             mod = other if who == "other" else this
             times[who].append(timed_ms(torch, lambda: call(mod),
                                        reps=args.reps))
+        dev_ms = {who: device_ms(torch, lambda: call(mod), args.reps)
+                  for who, mod in (("other", other), ("this", this))}
         print(json.dumps({
             "case": label, "records": n, "rel_l2_this_vs_other": err,
             "this_ms": times["this"], "other_ms": times["other"],
             "speedup": min(times["other"]) / min(times["this"]),
+            "this_device_ms": dev_ms["this"],
+            "other_device_ms": dev_ms["other"],
             "card": card}))
     print(card)
     return 0

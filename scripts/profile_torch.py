@@ -6,8 +6,8 @@ on one NVIDIA GPU, under ``torch.profiler``.
 
 At ``chip_smoke.py``'s shapes (2400² grid; 1,046,528 visibilities of the
 512-station observation for ``idg_image`` and ``idg_predict_vis`` at S=64
-(the streamed kernels) and at S=32 (the fixed-tile kernels), ``w_image``,
-``w_predict_vis`` and ``aw_image``; 1,048,320 pair-major
+(the streamed kernels) and at S=32 (the fixed-tile route onto them),
+``w_image``, ``w_predict_vis`` and ``aw_image``; 1,048,320 pair-major
 track records with random A-kernels for ``aw_idg_image`` and
 ``aw_predict_vis``; the 32-plane, qpx=8, 15² w-kernel bank built on the
 card; near-delta A-kernels of the 512 stations for ``aw_image``; and the

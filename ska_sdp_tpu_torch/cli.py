@@ -56,8 +56,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--subgrid", type=int, default=64,
                    help="IDG subgrid size: any even S up to 128 with "
                         "support 15 <= S/2+1 (32, 64 and 128 take the "
-                        "streamed kernels where they fit, the rest the "
-                        "fixed-tile kernels); IDG-AW: 32, 64 or 128")
+                        "streamed kernels' run prep where it fits, the rest "
+                        "the fixed-tile prep on the same kernels); IDG-AW: "
+                        "32, 64 or 128")
     p.add_argument("--fov-pad", type=float, default=None,
                    help="IDG full-FOV guarantee: grid FOV/f and crop")
     p.add_argument("--precision", choices=["single", "double"],

@@ -1,7 +1,7 @@
 // Streamed IDG(-AW) degridder for NVIDIA Hopper (sm_90a), on the tensor
 // cores.
 //
-// Replaces three TPU kernels of ska_sdp_tpu/kernels/ (one operator):
+// Replaces four TPU kernels of ska_sdp_tpu/kernels/ (one operator):
 //   #2 idg_aw_stream_pallas.py::_degrid_kernel (idg_aw_degrid_stream);
 //   #4 idg_aw_stream_pallas.py::idg_aw_degrid_banded, whose bands exist to
 //      fit the grid into VMEM: here the model grid in device memory serves
@@ -9,7 +9,11 @@
 //   #6 idg_aw_degrid_pallas.py::_kernel, the run-major variant: its
 //      head/main block protocol and unsort epilogue exist for the TPU's
 //      block DMA; here each visibility is written once to its original
-//      index (parity: tests/test_torch_spectral.py::TestRunMajorFold).
+//      index (parity: tests/test_torch_spectral.py::TestRunMajorFold);
+//   #8 idg_degrid_pallas.py::_kernel, the fixed-tile degridder: its runs
+//      are the occupied subgrids of stride S/2, with unit screens and pair
+//      0 (kernels/idg_tile.py::tile_runs), and the window sandwiches that
+//      the reference leaves to XLA before the kernel run here, per run.
 // Same operator, the exact adjoint of idg_grid.cu: records are sorted into
 // runs sharing one antenna pair and one uv tile; per run r with origin
 // (y0, x0) in the padded grid [N + 2S, Nx + 2S] (the complex64 model grid
@@ -23,6 +27,10 @@
 //   v_b       = Σ_q e^{−i·ph_y[q,b]} · Σ_r I[q,r]·e^{−i·ph_x[r,b]}
 //
 // for each record b in [starts[r], ends[r]), written to out[order_s[b]].
+// Any even S ≤ 128, as idg_grid.cu: S = 32, 64 and 128 have their own
+// instances, every other S runs on the instance of side SP = 16·⌈S/16⌉
+// with W, the phase factors and (wrapper) Fᴴ and the screens zero from S
+// on.
 //
 // What bounds it on the H100.  Per record the contraction over r is a
 // complex S-deep product for each of S rows (8·S² flop) and per run the
@@ -30,8 +38,8 @@
 // 1,046,528 records on the CUDA cores in f32 (67 TFLOP/s).  Here the
 // products run on the tensor cores (989 TFLOP/s fp16, of which mma.sync
 // reaches about half), and what is left beside them is the phase factors,
-// 2·S full-precision sincosf per record on the CUDA cores, the hi/lo
-// splits, the conj(e_y) weighting and the run prologues.
+// 2·S sincos per record (a range reduction on the CUDA cores and the SFU),
+// the hi/lo splits, the conj(e_y) weighting and the run prologues.
 //
 // Design (the arithmetic of idg_grid.cu, carried to the adjoint; the
 // split-fp16 helpers are shared through split_f16.cuh):
@@ -48,19 +56,20 @@
 //   wrapper builds no padded copy) and staged as hi/lo planes; B = Fᴴ·W
 //   (A = Fᴴ's planes, B read transposed from W's), then T = B·conj(F)
 //   (A = B's planes, the other operand Fᴴ's planes read as [r][x] rows),
-//   with Fᴴ's planes in shared memory at S ≤ 64 and read through L1 at
-//   S = 128; the pair
-//   screen in f32 on T's fragments gives I, stored as hi/lo planes [q][r]
-//   in the buffer that held W and then B;
+//   with Fᴴ's planes in shared memory at S ≤ 64 and read through L1
+//   above; the pair screen in f32 on T's fragments gives I, stored as
+//   hi/lo planes [q][r] in the buffer that held W and then B.  For a
+//   fixed-tile run (#8) this prologue is the window sandwich that the
+//   reference leaves to XLA, over every subgrid of the padded grid;
 // * records are taken 32 at a time through a two-stage shared-memory ring:
-//   the block evaluates 8·conj(e_x) of chunk k (full-precision sincosf:
-//   |ph| reaches ~110 rad, where __sincosf loses accuracy; do not build
-//   with --use_fast_math) into hi/lo planes [b][r] while the products of
+//   the block evaluates 8·conj(e_x) of chunk k (sincos_reduced, as
+//   idg_grid.cu) into hi/lo planes [b][r] while the products of
 //   chunk k − 1 run from the other stage, one barrier a chunk; the records
 //   of chunk k + 1 arrive meanwhile by cp.async (a three-stage record ring,
 //   since the products read dy and w of their own chunk);
 // * the contraction t = I·conj(E_x) (M = q, N = the chunk's 32 records,
-//   K = r) runs as mma.m16n8k16, a warp owning 16 rows × 16 records; the
+//   K = r) runs as mma.m16n8k16, a warp owning 16 rows × 16 records (× 32
+//   at the padded sides whose SP/16 is odd, one warp across); the
 //   conj(e_y) weighting stays in f32 on the accumulator fragments (each
 //   thread evaluates e_y at its own fragment's (q, b), so e_y needs no
 //   shared memory), then a warp-shuffle sum over the warp's rows and a
@@ -88,22 +97,26 @@ constexpr int kRecStages = 3;
 constexpr int kPairShift = 1 << 15;      // sentinel runs decode ia1 = 2¹⁵
 
 // Resident blocks per SM.
-template <int S> struct Tile;
-template <> struct Tile<32> { static constexpr int kMinBlocks = 4; };
-template <> struct Tile<64> { static constexpr int kMinBlocks = 2; };
-template <> struct Tile<128> { static constexpr int kMinBlocks = 1; };
+template <int SP> struct Tile {
+  static_assert(SP % 16 == 0 && SP >= 16 && SP <= 128,
+                "SP is a multiple of 16 up to 128");
+  static constexpr int kMinBlocks = SP <= 32 ? 4 : SP <= 64 ? 2 : 1;
+};
 
-// Warps: S/16 rows of 16 (WM) by 2 columns (WN).  In the sandwich a warp
-// owns 16 rows × S/2 columns (NT tiles of 8), in the contraction 16 rows ×
-// 16 records.
-template <int S>
+// Warps: SP/16 rows of 16 (WM) by WN columns, WN = 2 where SP/16 is even,
+// else 1 (cmma2 takes pairs of 8-wide tiles).  In the sandwich a warp owns
+// 16 rows × SP/WN columns (NT tiles of 8), in the contraction 16 rows ×
+// 32/WN records (CT tiles of 8).
+template <int SP>
 struct Geo {
-  static constexpr int WM = S / 16, WN = 2, NT = S / 16;
+  static constexpr int WM = SP / 16, WN = (SP / 16) % 2 == 0 ? 2 : 1;
+  static constexpr int NT = SP / (8 * WN), CT = kChunk / (8 * WN);
   static constexpr int kThreads = 32 * WM * WN;
-  static constexpr int kLd = S + 8;             // fp16 pitch of a plane row
-  static constexpr int kPlane = S * kLd;        // an S×S plane
+  static constexpr int kRecGroups = kThreads / (SP / 2);  // producer rows
+  static constexpr int kLd = SP + 8;            // fp16 pitch of a plane row
+  static constexpr int kPlane = SP * kLd;       // an SP×SP plane
   static constexpr int kPlaneE = kChunk * kLd;  // a chunk plane [b][r]
-  static constexpr bool kHShared = S <= 64;
+  static constexpr bool kHShared = SP <= 64;
   static constexpr size_t kImg = 4 * size_t(kPlane);     // W, then B, then I
   static constexpr size_t kRing = 2 * 4 * size_t(kPlaneE);
   static constexpr size_t kH = kHShared ? 4 * size_t(kPlane) : 0;
@@ -127,8 +140,10 @@ __device__ __forceinline__ int block_max_exponent(float m, int* slots,
   return r;
 }
 
-template <int S>
-__global__ void __launch_bounds__(Geo<S>::kThreads, Tile<S>::kMinBlocks)
+// S = SP, or with kPad the true subgrid s_true < SP: W, the phase factors
+// and so I are zero from s_true on.
+template <int SP, bool kPad>
+__global__ void __launch_bounds__(Geo<SP>::kThreads, Tile<SP>::kMinBlocks)
 idg_degrid_kernel(const float* __restrict__ recs, int64_t n_stride,
                   const int* __restrict__ starts, const int* __restrict__ ends,
                   const int* __restrict__ y0s, const int* __restrict__ x0s,
@@ -137,21 +152,23 @@ idg_degrid_kernel(const float* __restrict__ recs, int64_t n_stride,
                   const float2* __restrict__ scr, int nant,
                   const __half* __restrict__ Hp,
                   const float2* __restrict__ grid, int N, int Nx,
-                  float two_pi_s, float theta_s, float theta_x_s,
-                  float2* __restrict__ out) {
-  using G = Geo<S>;
+                  int s_true, float two_pi_s, float theta_s,
+                  float theta_x_s, float2* __restrict__ out) {
+  using G = Geo<SP>;
   constexpr int NT = G::NT;
+  constexpr int CT = G::CT;
   constexpr int kLd = G::kLd;
   constexpr int kPlane = G::kPlane;
   constexpr int kPlaneE = G::kPlaneE;
   constexpr int kWarps = G::kThreads / 32;
+  const int S = kPad ? s_true : SP;
   const int run = blockIdx.x;
   const int start = starts[run];
   const int end = ends[run];
   if (end <= start || ia1s[run] >= kPairShift) return;
 
   extern __shared__ float4 smem_raw[];
-  __half* img = reinterpret_cast<__half*>(smem_raw);   // 4 planes [S][kLd]
+  __half* img = reinterpret_cast<__half*>(smem_raw);   // 4 planes [SP][kLd]
   __half* aux = img + G::kImg;                          // Fᴴ, then the ring
   float* rec_s = reinterpret_cast<float*>(img + G::kHalves);
   float2* red_s = reinterpret_cast<float2*>(
@@ -165,8 +182,8 @@ idg_degrid_kernel(const float* __restrict__ recs, int64_t n_stride,
   const int t4 = lane & 3;                 // fragment column pair
   const int wm = warp % G::WM;
   const int row0 = wm * 16;
-  const int col0 = (warp / G::WM) * (S / 2);   // sandwich columns
-  const int rcol0 = (warp / G::WM) * 16;       // contraction records
+  const int col0 = (warp / G::WM) * (8 * NT);   // sandwich columns
+  const int rcol0 = (warp / G::WM) * (8 * CT);  // contraction records
   const float pi_f = 3.14159265358979323846f;
   const uint32_t* H32 = reinterpret_cast<const uint32_t*>(Hp);
 
@@ -192,11 +209,11 @@ idg_degrid_kernel(const float* __restrict__ recs, int64_t n_stride,
       const int kk = k0 + 2 * t4;
 #pragma unroll
       for (int p = 0; p < 4; ++p) {
-        const uint32_t* f = H32 + p * (S * S / 2);
-        a[p][0] = __ldg(f + (y * S + kk) / 2);
-        a[p][1] = __ldg(f + ((y + 8) * S + kk) / 2);
-        a[p][2] = __ldg(f + (y * S + kk + 8) / 2);
-        a[p][3] = __ldg(f + ((y + 8) * S + kk + 8) / 2);
+        const uint32_t* f = H32 + p * (SP * SP / 2);
+        a[p][0] = __ldg(f + (y * SP + kk) / 2);
+        a[p][1] = __ldg(f + ((y + 8) * SP + kk) / 2);
+        a[p][2] = __ldg(f + (y * SP + kk + 8) / 2);
+        a[p][3] = __ldg(f + ((y + 8) * SP + kk + 8) / 2);
       }
     }
   };
@@ -220,9 +237,9 @@ idg_degrid_kernel(const float* __restrict__ recs, int64_t n_stride,
         const int x = n0 + h * 8 + g;
 #pragma unroll
         for (int p = 0; p < 4; ++p) {
-          const uint32_t* f = H32 + p * (S * S / 2);
-          b[h][p][0] = __ldg(f + (x * S + kk) / 2);
-          b[h][p][1] = __ldg(f + (x * S + kk + 8) / 2);
+          const uint32_t* f = H32 + p * (SP * SP / 2);
+          b[h][p][0] = __ldg(f + (x * SP + kk) / 2);
+          b[h][p][1] = __ldg(f + (x * SP + kk + 8) / 2);
         }
       }
     }
@@ -232,24 +249,26 @@ idg_degrid_kernel(const float* __restrict__ recs, int64_t n_stride,
   load_records(start, 0);
   if constexpr (G::kHShared) {
     // Fᴴ's planes into shared memory, 16 bytes a copy, while W is read
-    constexpr int kRow16 = S / 8;
-    for (int e = tid; e < 4 * S * kRow16; e += G::kThreads) {
+    constexpr int kRow16 = SP / 8;
+    for (int e = tid; e < 4 * SP * kRow16; e += G::kThreads) {
       const int y = e / kRow16;            // plane-major rows
       const int c = e - y * kRow16;
-      cp_async16(aux + y * kLd + c * 8, Hp + y * S + c * 8);
+      cp_async16(aux + y * kLd + c * 8, Hp + y * SP + c * 8);
     }
   }
-  // the window's cell (y, x): the model grid's, 0 outside it
+  // the window's cell (y, x): the model grid's, 0 outside it (and, with
+  // kPad, from S on)
   const int wy0 = y0s[run] - S, wx0 = x0s[run] - S;
   auto cell = [&](int y, int x) {
     const int gy = wy0 + y, gx = wx0 + x;
-    return gy >= 0 && gy < N && gx >= 0 && gx < Nx
-               ? __ldg(grid + size_t(gy) * Nx + gx) : make_float2(0.f, 0.f);
+    const bool in = gy >= 0 && gy < N && gx >= 0 && gx < Nx &&
+                    (!kPad || (y < S && x < S));
+    return in ? __ldg(grid + size_t(gy) * Nx + gx) : make_float2(0.f, 0.f);
   };
   float m = 0.f;
-  for (int e = tid; e < S * S / 2; e += G::kThreads) {
-    const int y = e / (S / 2);
-    const int x = 2 * (e - y * (S / 2));
+  for (int e = tid; e < SP * SP / 2; e += G::kThreads) {
+    const int y = e / (SP / 2);
+    const int x = 2 * (e - y * (SP / 2));
     const float2 a = cell(y, x);
     const float2 b = cell(y, x + 1);
     m = fmaxf(m, fmaxf(fmaxf(fabsf(a.x), fabsf(a.y)),
@@ -259,9 +278,9 @@ idg_degrid_kernel(const float* __restrict__ recs, int64_t n_stride,
   const int e_w = block_max_exponent(m, e_slots[0], kWarps);
   {
     const float sw = ldexpf(1.f, 4 - e_w);
-    for (int e = tid; e < S * S / 2; e += G::kThreads) {
-      const int y = e / (S / 2);
-      const int x = 2 * (e - y * (S / 2));
+    for (int e = tid; e < SP * SP / 2; e += G::kThreads) {
+      const int y = e / (SP / 2);
+      const int x = 2 * (e - y * (SP / 2));
       const float2 a = cell(y, x);
       const float2 b = cell(y, x + 1);
       __half* p = img + y * kLd + x;
@@ -279,7 +298,7 @@ idg_degrid_kernel(const float* __restrict__ recs, int64_t n_stride,
     for (int i = 0; i < 4; ++i) re[nt][i] = im[nt][i] = 0.f;
   // B = Fᴴ·W: A = Fᴴ (rows q, depth y), B = W (depth y, columns x)
 #pragma unroll 1
-  for (int ks = 0; ks < S / 16; ++ks) {
+  for (int ks = 0; ks < SP / 16; ++ks) {
     uint32_t a[4][4], na[2][4];
     h_a(a, row0, ks * 16);
     negate(na, a);
@@ -327,7 +346,7 @@ idg_degrid_kernel(const float* __restrict__ recs, int64_t n_stride,
   __syncthreads();
   // T = B·conj(F): A = B (rows q, depth x), B = Fᴴ read as rows r, depth x
 #pragma unroll 1
-  for (int ks = 0; ks < S / 16; ++ks) {
+  for (int ks = 0; ks < SP / 16; ++ks) {
     uint32_t a[4][4], na[2][4];
     const __half* pa = img + (row0 + (lane & 15)) * kLd + ks * 16 +
                        (lane >> 4) * 8;
@@ -348,8 +367,8 @@ idg_degrid_kernel(const float* __restrict__ recs, int64_t n_stride,
     const float s2 = ldexpf(1.f, e_w - 4);
     const int i1 = max(0, min(ia1s[run], nant - 1));
     const int i2 = max(0, min(ia2s[run], nant - 1));
-    const float2* A1 = scr + size_t(i1) * S * S;
-    const float2* A2 = scr + size_t(i2) * S * S;
+    const float2* A1 = scr + size_t(i1) * SP * SP;
+    const float2* A2 = scr + size_t(i2) * SP * SP;
     m = 0.f;
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
@@ -358,9 +377,9 @@ idg_degrid_kernel(const float* __restrict__ recs, int64_t n_stride,
         const int q = row0 + g + 8 * h;
         const int r = col0 + nt * 8 + 2 * t4;
         const float4 u1 = __ldg(reinterpret_cast<const float4*>(
-            A1 + q * S + r));
+            A1 + q * SP + r));
         const float4 u2 = __ldg(reinterpret_cast<const float4*>(
-            A2 + q * S + r));
+            A2 + q * SP + r));
         // a1·a2 at (q, r) and (q, r + 1)
         const float pr[2] = {u1.x * u2.x - u1.y * u2.y,
                              u1.z * u2.z - u1.w * u2.w};
@@ -397,9 +416,18 @@ idg_degrid_kernel(const float* __restrict__ recs, int64_t n_stride,
   const float vs = ldexpf(1.f, e_i - 7);
 
   // ---- producer: a chunk's 8·conj(e_x) as hi/lo planes [b][r] ----------
-  const int pr2 = 2 * (tid % (S / 2));     // this thread's pair of r
-  const int pb0 = tid / (S / 2);           // and first record
+  const int pr2 = 2 * (tid % (SP / 2));    // this thread's pair of r
+  const int pb0 = tid / (SP / 2);          // and first record
   auto produce = [&](const float* rs, __half* st) {
+    if (kPad && pr2 >= S) {                // zero columns (pr2 even, S even)
+#pragma unroll
+      for (int j = 0; j < kChunk / G::kRecGroups; ++j) {
+        __half* p = st + (pb0 + G::kRecGroups * j) * kLd + pr2;
+        store_split(p, p + kPlaneE, 0.f, 0.f);
+        store_split(p + 2 * kPlaneE, p + 3 * kPlaneE, 0.f, 0.f);
+      }
+      return;
+    }
     float two_c[2], kx[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -409,14 +437,14 @@ idg_degrid_kernel(const float* __restrict__ recs, int64_t n_stride,
       kx[i] = pi_f * (lx * lx);
     }
 #pragma unroll
-    for (int j = 0; j < kChunk / 8; ++j) {
-      const int b = pb0 + 8 * j;
+    for (int j = 0; j < kChunk / G::kRecGroups; ++j) {
+      const int b = pb0 + G::kRecGroups * j;
       const float dx = rs[kChunk + b];
       const float w = rs[2 * kChunk + b];
       float s[2], c[2];
 #pragma unroll
-      for (int i = 0; i < 2; ++i) sincosf(two_c[i] * dx - kx[i] * w, &s[i],
-                                          &c[i]);
+      for (int i = 0; i < 2; ++i)
+        sincos_reduced(two_c[i] * dx - kx[i] * w, &s[i], &c[i]);
       __half* p = st + b * kLd + pr2;
       store_split(p, p + kPlaneE, 8.f * c[0], 8.f * c[1]);
       store_split(p + 2 * kPlaneE, p + 3 * kPlaneE, -8.f * s[0],
@@ -426,51 +454,58 @@ idg_degrid_kernel(const float* __restrict__ recs, int64_t n_stride,
 
   // ---- consumer: t = I·conj(E_x), weighted by conj(e_y) ----------------
   auto consume = [&](const __half* st, const float* rs, float2* red) {
-    float tre[2][4], tim[2][4];
+    float tre[CT][4], tim[CT][4];
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
+    for (int nt = 0; nt < CT; ++nt)
 #pragma unroll
       for (int i = 0; i < 4; ++i) tre[nt][i] = tim[nt][i] = 0.f;
 #pragma unroll 1
-    for (int ks = 0; ks < S / 16; ++ks) {
-      uint32_t a[4][4], na[2][4], b[2][4][2];
+    for (int ks = 0; ks < SP / 16; ++ks) {
+      uint32_t a[4][4], na[2][4];
       const __half* pa = img + (row0 + (lane & 15)) * kLd + ks * 16 +
                          (lane >> 4) * 8;
 #pragma unroll
       for (int p = 0; p < 4; ++p) ldsm_x4(a[p], pa + p * kPlane);
       negate(na, a);
-      const __half* pe = st + (rcol0 + (lane >> 4) * 8 + (lane & 7)) * kLd +
-                         ks * 16 + ((lane >> 3) & 1) * 8;
 #pragma unroll
-      for (int p = 0; p < 4; ++p) {
-        uint32_t r[4];
-        ldsm_x4(r, pe + p * kPlaneE);
-        b[0][p][0] = r[0];
-        b[0][p][1] = r[1];
-        b[1][p][0] = r[2];
-        b[1][p][1] = r[3];
+      for (int np = 0; np < CT / 2; ++np) {
+        uint32_t b[2][4][2];
+        const __half* pe =
+            st + (rcol0 + np * 16 + (lane >> 4) * 8 + (lane & 7)) * kLd +
+            ks * 16 + ((lane >> 3) & 1) * 8;
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+          uint32_t r[4];
+          ldsm_x4(r, pe + p * kPlaneE);
+          b[0][p][0] = r[0];
+          b[0][p][1] = r[1];
+          b[1][p][0] = r[2];
+          b[1][p][1] = r[3];
+        }
+        cmma2(tre, tim, 2 * np, a, na, b, 1.f);
       }
-      cmma2(tre, tim, 0, a, na, b, 1.f);
     }
-    // conj(e_y[q, b])·t[q, b] summed over this thread's rows q
-    float2 part[2][2];
+    // conj(e_y[q, b])·t[q, b] summed over this thread's rows q (rows from
+    // S on hold t = 0)
+    float2 part[CT][2];
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
+    for (int nt = 0; nt < CT; ++nt)
 #pragma unroll
       for (int c = 0; c < 2; ++c) part[nt][c] = make_float2(0.f, 0.f);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
+      if (kPad && row0 + g + 8 * h >= S) continue;
       const float cq = float(row0 + g + 8 * h - S / 2);
       const float ly = cq * theta_s;
       const float two_c = two_pi_s * cq;
       const float ky = pi_f * (ly * ly);
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
+      for (int nt = 0; nt < CT; ++nt)
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
           const int b = rcol0 + nt * 8 + 2 * t4 + c;
           float s, co;
-          sincosf(two_c * rs[b] - ky * rs[2 * kChunk + b], &s, &co);
+          sincos_reduced(two_c * rs[b] - ky * rs[2 * kChunk + b], &s, &co);
           const float tr = tre[nt][2 * h + c], ti = tim[nt][2 * h + c];
           part[nt][c].x = fmaf(co, tr, fmaf(s, ti, part[nt][c].x));
           part[nt][c].y = fmaf(co, ti, fmaf(-s, tr, part[nt][c].y));
@@ -478,7 +513,7 @@ idg_degrid_kernel(const float* __restrict__ recs, int64_t n_stride,
     }
     // over the warp's 8 row groups, then one entry a (row warp, record)
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
+    for (int nt = 0; nt < CT; ++nt)
 #pragma unroll
       for (int c = 0; c < 2; ++c)
 #pragma unroll
@@ -488,7 +523,7 @@ idg_degrid_kernel(const float* __restrict__ recs, int64_t n_stride,
         }
     if (g == 0) {
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
+      for (int nt = 0; nt < CT; ++nt)
 #pragma unroll
         for (int c = 0; c < 2; ++c)
           red[wm * kChunk + rcol0 + nt * 8 + 2 * t4 + c] = part[nt][c];
@@ -534,7 +569,7 @@ idg_degrid_kernel(const float* __restrict__ recs, int64_t n_stride,
 // here); a failure is cleared from the runtime's last error, so that the
 // next launch reports only its own, returned, and tried again on the next
 // call.
-template <int S>
+template <int SP, bool kPad>
 cudaError_t set_attributes() {
   constexpr int kMaxDevices = 64;
   static std::atomic<bool> done[kMaxDevices];
@@ -544,11 +579,11 @@ cudaError_t set_attributes() {
       done[dev].load(std::memory_order_acquire))
     return cudaSuccess;
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(idg_degrid_kernel<S>,
+    err = cudaFuncSetAttribute(idg_degrid_kernel<SP, kPad>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               int(Geo<S>::kSmem));
+                               int(Geo<SP>::kSmem));
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(idg_degrid_kernel<S>,
+    err = cudaFuncSetAttribute(idg_degrid_kernel<SP, kPad>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                int(cudaSharedmemCarveoutMaxShared));
   if (err != cudaSuccess) {
@@ -559,29 +594,30 @@ cudaError_t set_attributes() {
   return cudaSuccess;
 }
 
-template <int S>
+template <int SP, bool kPad>
 cudaError_t launch(const float* recs, int64_t n_stride, const int* starts,
                    const int* ends, const int* y0, const int* x0,
                    const int* ia1, const int* ia2, int n_runs,
                    const int* order, const float2* scr, int nant,
-                   const __half* Hp, const float2* grid, int N, int Nx,
+                   const __half* Hp, const float2* grid, int N, int Nx, int S,
                    float two_pi_s, float theta_s, float theta_x_s,
                    float2* out, cudaStream_t stream) {
-  using G = Geo<S>;
-  const cudaError_t err = set_attributes<S>();
+  using G = Geo<SP>;
+  const cudaError_t err = set_attributes<SP, kPad>();
   if (err != cudaSuccess) return err;
-  idg_degrid_kernel<S><<<n_runs, G::kThreads, G::kSmem, stream>>>(
+  idg_degrid_kernel<SP, kPad><<<n_runs, G::kThreads, G::kSmem, stream>>>(
       recs, n_stride, starts, ends, y0, x0, ia1, ia2, order, scr, nant, Hp,
-      grid, N, Nx, two_pi_s, theta_s, theta_x_s, out);
+      grid, N, Nx, S, two_pi_s, theta_s, theta_x_s, out);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// H_planes: [4, S, S] fp16, the hi/lo planes (re hi, re lo, im hi, im lo)
-// of 16·S·Fᴴ (kernels/idg_aw_stream.py::_dft_planes_adjoint); grid: the
-// [N, Nx] complex64 model grid, contiguous; y0, x0: run origins in the
-// padded grid [N + 2S, Nx + 2S].
+// H_planes: [4, SP, SP] fp16, the hi/lo planes (re hi, re lo, im hi, im
+// lo) of 16·S·Fᴴ zero-padded to SP = padded_side(S)
+// (kernels/idg_aw_stream.py::_dft_planes_adjoint); screens: [nant, SP, SP]
+// complex64, zero outside S × S; grid: the [N, Nx] complex64 model grid,
+// contiguous; y0, x0: run origins in the padded grid [N + 2S, Nx + 2S].
 extern "C" int idg_degrid_stream(const void* recs, long long n_stride,
                                  const void* starts, const void* ends,
                                  const void* y0, const void* x0,
@@ -606,22 +642,11 @@ extern "C" int idg_degrid_stream(const void* recs, long long n_stride,
   auto g = static_cast<const float2*>(grid);
   auto o = static_cast<float2*>(out);
   auto s = static_cast<cudaStream_t>(stream);
-  switch (S) {
-    case 32:
-      return int(launch<32>(r, n_stride, st, en, yy, xx, a1, a2, n_runs, od,
-                            sc, nant, hp, g, N, Nx, two_pi_s, theta_s,
-                            theta_x_s, o, s));
-    case 64:
-      return int(launch<64>(r, n_stride, st, en, yy, xx, a1, a2, n_runs, od,
-                            sc, nant, hp, g, N, Nx, two_pi_s, theta_s,
-                            theta_x_s, o, s));
-    case 128:
-      return int(launch<128>(r, n_stride, st, en, yy, xx, a1, a2, n_runs, od,
-                             sc, nant, hp, g, N, Nx, two_pi_s, theta_s,
-                             theta_x_s, o, s));
-    default:
-      return int(cudaErrorInvalidValue);
-  }
+  return int(dispatch_subgrid(S, [&](auto sp, auto pad) {
+    return launch<decltype(sp)::value, decltype(pad)::value>(
+        r, n_stride, st, en, yy, xx, a1, a2, n_runs, od, sc, nant, hp, g, N,
+        Nx, S, two_pi_s, theta_s, theta_x_s, o, s);
+  }));
 }
 
 extern "C" const char* idg_degrid_error_string(int code) {

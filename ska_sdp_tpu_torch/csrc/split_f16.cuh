@@ -3,7 +3,8 @@
 // becomes two fp16 planes hi = fp16(x), lo = fp16(x − hi) (22 bits of x
 // where |x| < 16, so the callers scale their operands by powers of two to
 // below 16), and a real product is three mma.sync.m16n8k16 passes (hi·hi,
-// hi·lo, lo·hi) with f32 sums; ldmatrix and cp.async move the planes.
+// hi·lo, lo·hi) with f32 sums; ldmatrix and cp.async move the planes.  Also
+// their choice of kernel instance for a subgrid size (dispatch_subgrid).
 // Included once per kernel source: the helpers have internal linkage.
 
 #pragma once
@@ -11,6 +12,8 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -49,6 +52,21 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// sin and cos of a phase x (|x| to ~110 rad here): a two-constant
+// Cody–Waite step takes x to r in [−π, π] (k·2π_hi is exact for |k| <
+// 2¹⁶, so r keeps the float32 rounding of x and adds ~1 ulp of π), then the
+// SFU's __sincosf, whose error on [−π, π] is at most 2^−21.2 absolute: the
+// order of the split-fp16 planes' 2^−22.  Full-precision sincosf costs
+// about four times the instructions; __sincosf on x itself loses accuracy
+// as |x| grows (do not build with --use_fast_math, which would put it on
+// every sincosf).
+__device__ __forceinline__ void sincos_reduced(float x, float* s, float* c) {
+  const float k = rintf(x * 0.159154943091895336f);     // 1/(2π)
+  float r = fmaf(-k, 6.28125f, x);                      // 2π_hi, 8 bits
+  r = fmaf(-k, 1.93530717958647692e-3f, r);             // 2π − 2π_hi
+  __sincosf(r, s, c);
 }
 
 __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
@@ -151,6 +169,34 @@ __device__ __forceinline__ int warp_max_exponent(float m) {
   int e;
   frexpf(m, &e);
   return m > 0.f ? max(e, -120) : -120;
+}
+
+// Calls f(std::integral_constant<int, SP>, std::bool_constant<kPad>) for
+// the kernel instance that serves an even subgrid 2 ≤ S ≤ 128: S = 32, 64
+// and 128 their own (kPad false), every other S the instance of side
+// SP = 16·⌈S/16⌉ with zero rows and columns from S on (kPad true).
+// Returns f's result, or cudaErrorInvalidValue for any other S.
+template <typename F>
+cudaError_t dispatch_subgrid(int S, F&& f) {
+  using std::false_type;
+  using std::true_type;
+  switch (S) {
+    case 32: return f(std::integral_constant<int, 32>{}, false_type{});
+    case 64: return f(std::integral_constant<int, 64>{}, false_type{});
+    case 128: return f(std::integral_constant<int, 128>{}, false_type{});
+    default: break;
+  }
+  if (S < 2 || S > 128 || S % 2) return cudaErrorInvalidValue;
+  switch ((S + 15) / 16) {
+    case 1: return f(std::integral_constant<int, 16>{}, true_type{});
+    case 2: return f(std::integral_constant<int, 32>{}, true_type{});
+    case 3: return f(std::integral_constant<int, 48>{}, true_type{});
+    case 4: return f(std::integral_constant<int, 64>{}, true_type{});
+    case 5: return f(std::integral_constant<int, 80>{}, true_type{});
+    case 6: return f(std::integral_constant<int, 96>{}, true_type{});
+    case 7: return f(std::integral_constant<int, 112>{}, true_type{});
+    default: return f(std::integral_constant<int, 128>{}, true_type{});
+  }
 }
 
 }  // namespace

@@ -14,10 +14,11 @@ ids where they serve the shape losslessly: every record keys to (pair 0, uv
 tile), runs are the occupied tiles and ``conj(1·1) = 1`` keeps the operator
 exact continuous-w IDG.  Every other shape (S outside
 ``STREAM_SUBGRIDS``, or a fit margin below 5, as S=32 with support 15 has)
-takes the fixed-tile kernels (``kernels/idg_tile.py``), as the reference
+takes the fixed-tile prep (``kernels/idg_tile.py``), as the reference
 does: any even S up to 128 with support ≤ S/2 + 1, no record limit, and no
-in-bounds record dropped.  IDG-AW rides the streamed kernels with
-per-antenna screens.
+in-bounds record dropped; its occupied subgrids then run on the same
+streamed kernels.  IDG-AW rides the streamed kernels with per-antenna
+screens.
 
 Dropped records are counted per gridder and reported once per gridder on
 stderr.
@@ -152,14 +153,15 @@ def idg_degridder(grid_shape, p: torch.Tensor, w: torch.Tensor,
 
 
 def _check_aw_subgrid(subgrid: int) -> None:
-    """The IDG-AW routes take exactly the streamed kernels' subgrids; the
-    reference serves the others with its XLA realization
-    (``ska_sdp_tpu/ops/idg_aw.py``), which the port has no counterpart
-    of.  No margin floor applies: drops are counted, not refused."""
+    """The IDG-AW routes take exactly the streamed run prep's subgrids
+    (the kernels take any even S up to 128); the reference serves the
+    others with its XLA realization (``ska_sdp_tpu/ops/idg_aw.py``), which
+    the port has no counterpart of.  No margin floor applies: drops are
+    counted, not refused."""
     if subgrid not in STREAM_SUBGRIDS:
         raise NotImplementedError(
-            f"IDG-AW at subgrid={subgrid} is outside the streamed kernels' "
-            f"envelope {STREAM_SUBGRIDS}; the reference's XLA IDG-AW "
+            f"IDG-AW at subgrid={subgrid} is outside the streamed run "
+            f"prep's envelope {STREAM_SUBGRIDS}; the reference's XLA IDG-AW "
             "(ska_sdp_tpu/ops/idg_aw.py) that serves it is not ported")
 
 

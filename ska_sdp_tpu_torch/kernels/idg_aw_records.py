@@ -23,7 +23,8 @@ import torch
 
 from ..ops.idg_aw import PAIR_SHIFT, SENTINEL, _record_keys, auto_fit_margin
 
-# Subgrid sizes the streamed gridder and degridder take.
+# Subgrid sizes the streamed run prep serves (the IDG-AW routes and plain
+# IDG's run route); the kernels themselves take any even S up to 128.
 STREAM_SUBGRIDS = (32, 64, 128)
 
 

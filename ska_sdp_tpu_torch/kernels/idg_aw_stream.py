@@ -13,7 +13,10 @@ and adds the patch to the padded grid at the run's origin ``(y0, x0)``.
 Degridding is its exact adjoint: the run's window ``W`` becomes
 ``I = (Fᴴ·W·conj(F)) ∘ (A[ia1]·A[ia2])`` and each record reads
 ``v_b = Σ_q Σ_r I[q, r]·conj(e_y[q, b]·e_x[r, b])``.  With unit screens
-and zero pair ids both are plain continuous-w IDG.
+and zero pair ids both are plain continuous-w IDG.  Any even S from 2 to
+128: the kernels serve S = 32, 64 and 128 with their own instances and
+every other S on the instance of side :func:`padded_side` (S rounded up to
+a multiple of 16), whose operands the wrappers zero-pad.
 
 The wrappers launch the CUDA kernels for CUDA tensors and use the plain
 versions only for CPU tensors; they never fall back.  The plain versions
@@ -25,7 +28,9 @@ reference's
 run-major kernels (``idg_aw_pallas.py::_kernel`` and
 ``idg_aw_degrid_pallas.py::_kernel``, selected by
 ``SKA_SDP_TPU_IDG_AW_KERNEL=run``) compute the same two operators, so the
-port has no selector: both fold into this pair.
+port has no selector: both fold into this pair, and so do the fixed-tile
+kernels (``idg_pallas.py::_kernel``, ``idg_degrid_pallas.py::_kernel``)
+through the run table of ``kernels/idg_tile.py``.
 """
 
 from __future__ import annotations
@@ -41,11 +46,11 @@ import torch
 from ..ops.idg import _dft_matrix, kaiser_taper
 from ..ops.idg_aw import PAIR_SHIFT
 from ._build import bind
-from .idg_aw_records import (STREAM_SUBGRIDS, idg_aw_degrid_records,
-                             idg_aw_run_records)
+from .idg_aw_records import idg_aw_degrid_records, idg_aw_run_records
 
 GRID_KERNEL = "idg_grid_stream"
 DEGRID_KERNEL = "idg_degrid_stream"
+MAX_SUBGRID = 128        # the kernels' largest instance
 _launches = {GRID_KERNEL: 0, DEGRID_KERNEL: 0}
 
 
@@ -85,25 +90,60 @@ def _split_f16(x):
     return hi, (x - hi.to(x.dtype)).to(torch.float16)
 
 
+def padded_side(S: int) -> int:
+    """The side SP of the kernel instance that serves subgrid S: S rounded
+    up to a multiple of 16.  Rows and columns from S on are zero in the
+    padded operands (planes, screens) and in the kernels' phase factors."""
+    return -(-S // 16) * 16
+
+
+def _check_subgrid(S: int) -> None:
+    if S < 2 or S % 2 or S > MAX_SUBGRID:
+        raise ValueError(f"subgrid {S}: the streamed kernels take an even "
+                         f"subgrid from 2 to {MAX_SUBGRID}")
+
+
+def _planes(M, S: int):
+    """The split-fp16 planes ``[4, SP, SP]`` (re hi, re lo, im hi, im lo)
+    of a complex ``[S, S]`` matrix, zero from S on (SP =
+    :func:`padded_side`)."""
+    SP = padded_side(S)
+    P = torch.zeros((4, SP, SP), dtype=torch.float16, device=M.device)
+    for k, x in enumerate((*_split_f16(M.real), *_split_f16(M.imag))):
+        P[k, :S, :S] = x
+    return P
+
+
 @functools.lru_cache(maxsize=16)
 def _dft_planes(S: int, taper_beta: float, device=None):
-    """The split-fp16 planes ``[4, S, S]`` (re hi, re lo, im hi, im lo) of
-    ``16·S·F`` (|·| ≤ 16, where fp16 keeps its full precision) for
-    ``csrc/idg_grid.cu``'s tensor-core sandwich, split from the float64
-    factor; built once per (S, β, device)."""
-    F = _dft_factor64(S, taper_beta, device) * (16 * S)
-    return torch.stack([*_split_f16(F.real), *_split_f16(F.imag)])
+    """The split-fp16 planes ``[4, SP, SP]`` of ``16·S·F`` (|·| ≤ 16,
+    where fp16 keeps its full precision) for ``csrc/idg_grid.cu``'s
+    tensor-core sandwich, split from the float64 factor and zero-padded to
+    the kernel's side (:func:`_planes`); built once per (S, β, device)."""
+    return _planes(_dft_factor64(S, taper_beta, device) * (16 * S), S)
 
 
 @functools.lru_cache(maxsize=16)
 def _dft_planes_adjoint(S: int, taper_beta: float, device=None):
-    """The split-fp16 planes ``[4, S, S]`` of ``16·S·Fᴴ`` (``Fᴴ[q, y] =
+    """The split-fp16 planes ``[4, SP, SP]`` of ``16·S·Fᴴ`` (``Fᴴ[q, y] =
     conj(F[y, q])``) for ``csrc/idg_degrid.cu``'s sandwich ``Fᴴ·W·conj(F)``,
     which reads them as ``Fᴴ`` rows for its first product and as
-    ``conj(F)`` columns for its second; built once per (S, β, device)."""
-    F = (_dft_factor64(S, taper_beta, device).conj().T * (16 * S)
-         ).contiguous()
-    return torch.stack([*_split_f16(F.real), *_split_f16(F.imag)])
+    ``conj(F)`` columns for its second; zero-padded as :func:`_dft_planes`,
+    built once per (S, β, device)."""
+    return _planes(_dft_factor64(S, taper_beta, device).conj().T
+                   * (16 * S), S)
+
+
+def _padded_screens(screens, S: int):
+    """``screens`` ``[nant, S, S]`` as the kernels read them: ``[nant, SP,
+    SP]``, zero from S on (the same tensor where SP = S)."""
+    SP = padded_side(S)
+    if SP == S:
+        return screens
+    out = torch.zeros((screens.shape[0], SP, SP), dtype=screens.dtype,
+                      device=screens.device)
+    out[:, :S, :S] = screens
+    return out
 
 
 def length_class(n):
@@ -196,13 +236,16 @@ def grid_from_records_plain(recs, starts, ends, y0, x0, ia1, ia2, screens,
     are summed into per-run accumulators with ``index_add_``; the pair
     screens and the sandwich then run as one batched product over the
     occupied runs, and the patches are added to the grid by flat index.
+    A run whose patch would leave the padded grid adds nothing, as in the
+    kernel.
     """
     N, Nx = grid_shape
     S = subgrid
     HP, WP = N + 2 * S, Nx + 2 * S
     dev = recs.device
     out = torch.zeros((HP, WP), dtype=torch.complex64, device=dev)
-    active = torch.nonzero(ends > starts).squeeze(1)
+    inside = (y0 >= 0) & (x0 >= 0) & (y0 <= HP - S) & (x0 <= WP - S)
+    active = torch.nonzero((ends > starts) & inside).squeeze(1)
     R = active.numel()
     if R == 0:
         return out
@@ -318,38 +361,41 @@ def _grid_from_records_cuda(recs, starts, ends, y0, x0, ia1, ia2, screens,
                             *, grid_shape, theta: float, subgrid: int,
                             taper_beta: float):
     """Launch ``csrc/idg_grid.cu`` on the current stream; returns the padded
-    grid.  The launch first sorts the run table into its block order, in a
-    scratch buffer of the table's length.  Raises on bad inputs and on a
-    refused launch."""
+    grid and a 0-dim int32 tensor, nonzero if a run was skipped because its
+    patch would leave the grid (read it back to check; the prep never makes
+    such a run).  The launch first sorts the run table into the order its
+    blocks take the runs by, in a scratch buffer of the table's length and
+    two counters.  Raises on bad inputs and on a refused launch."""
     S = subgrid
-    if S not in STREAM_SUBGRIDS:
-        raise ValueError(f"subgrid {S} outside the kernel's envelope "
-                         f"{STREAM_SUBGRIDS}")
-    runs = (starts, ends, y0, x0, ia1, ia2)
-    _check_cuda_inputs(recs, runs, screens, S)
     N, Nx = grid_shape
     HP, WP = N + 2 * S, Nx + 2 * S
     dev = recs.device
+    # zeroed first: the card clears the grid while the host checks
     out = torch.zeros((HP, WP), dtype=torch.complex64, device=dev)
+    _check_subgrid(S)
+    runs = (starts, ends, y0, x0, ia1, ia2)
+    _check_cuda_inputs(recs, runs, screens, S)
     planes = _dft_planes(S, taper_beta, dev)
-    order = torch.empty_like(starts)
+    scr = _padded_screens(screens, S)
+    order = torch.empty((starts.shape[0] + 2,), dtype=torch.int32,
+                        device=dev)
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn, err = bind("idg_grid", "idg_grid_stream",
                     [vp, ctypes.c_longlong, vp, vp, vp, vp, vp, vp, vp, ci,
-                     vp, ci, vp, vp, ci, ci, cf, cf, cf, vp])
+                     vp, ci, vp, vp, ci, ci, ci, cf, cf, cf, vp])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(recs.data_ptr(), recs.shape[1], order.data_ptr(),
                 starts.data_ptr(), ends.data_ptr(), y0.data_ptr(),
                 x0.data_ptr(), ia1.data_ptr(), ia2.data_ptr(),
-                starts.shape[0], screens.data_ptr(), screens.shape[0],
-                planes.data_ptr(), out.data_ptr(), WP, S,
+                starts.shape[0], scr.data_ptr(), scr.shape[0],
+                planes.data_ptr(), out.data_ptr(), HP, WP, S,
                 *_phase_scalars(S, theta, N, Nx), stream)
     if rc != 0:
         raise RuntimeError(f"{GRID_KERNEL} launch failed: "
                            f"{err(rc).decode()} ({rc})")
     _launches[GRID_KERNEL] += 1
-    return out
+    return out, order[-1]
 
 
 def _degrid_from_records_cuda(recs, starts, ends, y0, x0, ia1, ia2, order_s,
@@ -360,9 +406,7 @@ def _degrid_from_records_cuda(recs, starts, ends, y0, x0, ia1, ia2, order_s,
     ``[N, Nx]`` model grid, at the runs' padded origins (zero outside it).
     Raises on bad inputs and on a refused launch."""
     S = subgrid
-    if S not in STREAM_SUBGRIDS:
-        raise ValueError(f"subgrid {S} outside the kernel's envelope "
-                         f"{STREAM_SUBGRIDS}")
+    _check_subgrid(S)
     runs = (starts, ends, y0, x0, ia1, ia2)
     _check_cuda_inputs(recs, runs, screens, S, rows=3)
     n = recs.shape[1]
@@ -378,6 +422,7 @@ def _degrid_from_records_cuda(recs, starts, ends, y0, x0, ia1, ia2, order_s,
     dev = recs.device
     out = torch.zeros((n,), dtype=torch.complex64, device=dev)
     planes = _dft_planes_adjoint(S, taper_beta, dev)
+    scr = _padded_screens(screens, S)
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn, err = bind("idg_degrid", "idg_degrid_stream",
                     [vp, ctypes.c_longlong, vp, vp, vp, vp, vp, vp, ci, vp,
@@ -386,8 +431,8 @@ def _degrid_from_records_cuda(recs, starts, ends, y0, x0, ia1, ia2, order_s,
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(recs.data_ptr(), n, starts.data_ptr(), ends.data_ptr(),
                 y0.data_ptr(), x0.data_ptr(), ia1.data_ptr(), ia2.data_ptr(),
-                starts.shape[0], order_s.data_ptr(), screens.data_ptr(),
-                screens.shape[0], planes.data_ptr(), grid.data_ptr(), N, Nx,
+                starts.shape[0], order_s.data_ptr(), scr.data_ptr(),
+                scr.shape[0], planes.data_ptr(), grid.data_ptr(), N, Nx,
                 S, *_phase_scalars(S, theta, N, Nx), out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"{DEGRID_KERNEL} launch failed: "
@@ -411,8 +456,8 @@ def idg_aw_grid_from_records_stream(recs, starts, ends, y0, x0, ia1, ia2,
     kw = dict(grid_shape=grid_shape, theta=theta, subgrid=S,
               taper_beta=taper_beta)
     if recs.is_cuda:
-        g = _grid_from_records_cuda(recs, starts, ends, y0, x0, ia1, ia2,
-                                    screens, **kw)
+        g, _ = _grid_from_records_cuda(recs, starts, ends, y0, x0, ia1, ia2,
+                                       screens, **kw)
     elif recs.device.type == "cpu":
         g = grid_from_records_plain(recs, starts, ends, y0, x0, ia1, ia2,
                                     screens, **kw)

@@ -1,9 +1,9 @@
-"""Fixed-tile IDG gridder and degridder: the record prep, wrappers of the
-CUDA kernels ``csrc/idg_tile_grid.cu`` and ``csrc/idg_tile_degrid.cu`` and
-their plain PyTorch versions (port of ``ska_sdp_tpu/kernels/idg_pallas.py``:
-``idg_bin_records``, ``idg_bin_records_multi``, ``idg_records_for_channel``,
-``idg_grid_from_records``, ``idg_gridder_pallas``; and
-of ``ska_sdp_tpu/kernels/idg_degrid_pallas.py``: ``_prep_with_order`` and
+"""Fixed-tile IDG gridder and degridder: the record prep and the wrappers
+that run it on the streamed kernels (port of
+``ska_sdp_tpu/kernels/idg_pallas.py``: ``idg_bin_records``,
+``idg_bin_records_multi``, ``idg_records_for_channel``,
+``idg_grid_from_records``, ``idg_gridder_pallas``; and of
+``ska_sdp_tpu/kernels/idg_degrid_pallas.py``: ``_prep_with_order`` and
 ``idg_degrid_wproj_pallas``).
 
 Geometry: subgrids of side S (even) at stride T = S/2 tile the padded grid
@@ -17,13 +17,17 @@ anchor lies off the grid are excluded: they grid nothing and predict 0.
 Gridding: per subgrid ``a[q, r] = Σ_b v_b·e_y[q, b]·e_x[r, b]`` with
 ``e(ph) = e^{i·ph}``, ``ph = 2π/S·c_q·d − π·(c_q·θ/S)²·w``, ``c_q = q − S/2``,
 and the patch ``F′·a·F′ᵀ`` (``F′ = F·diag(taper)/S``) is added at the
-window's origin.  The plain version emits the reference's per-subgrid
-patches and folds them with ``ops.idg._fold_overlap``; the kernel adds each
-patch with atomics.  Degridding is the adjoint: per occupied subgrid the
-window W becomes ``a = F′ᴴ·W·conj(F′)`` (the reference's ``/S²`` is the
-``1/S`` of each factor), a batched matmul outside the kernel as the
-reference leaves it to XLA, and each record reads
-``v = Σ_q conj(e_y[q])·Σ_r a[q, r]·conj(e_x[r])``.
+window's origin.  Degridding is the adjoint: per occupied subgrid the
+window W becomes ``a = F′ᴴ·W·conj(F′)`` and each record reads
+``v = Σ_q conj(e_y[q])·Σ_r a[q, r]·conj(e_x[r])``.  That is the streamed
+IDG(-AW) operator of ``kernels/idg_aw_stream.py`` with unit screens and
+pair 0, so the fixed-tile records run on it: :func:`tile_runs` makes each
+subgrid one run, at the window's origin moved from the T-padded layout to
+the streamed one's S-padded layout (``(gy·T + T, gx·T + T)``),
+and the streamed kernels (``csrc/idg_grid.cu``, ``csrc/idg_degrid.cu``)
+or, for CPU tensors, their plain versions do the rest.  The degridder's
+window sandwiches run inside the kernel, per run, from the ``[N, Nx]``
+model grid.
 
 Records: the gridder's are ``[5, n]`` float32 rows ``(dy, dx, w, vis_re,
 vis_im)`` sorted by subgrid id, with ``starts`` ``[n_sub + 1]`` int32 (the
@@ -32,34 +36,30 @@ excluded records sort last, past ``starts[-1]``); the degridder's are
 sorted record) and ``valid``.  The reference's ``[nblk, 8, 256]`` TPU
 packing is not kept (:func:`from_jax_tile_records` converts it).
 
-The wrappers launch the CUDA kernels for CUDA tensors and use the plain
-versions only for CPU tensors; they never fall back.  All compute in full
-float32.
+The wrappers launch the streamed CUDA kernels for CUDA tensors and use
+the plain versions only for CPU tensors; they never fall back.
 """
 
 from __future__ import annotations
 
-import ctypes
 import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from ..ops.idg import _fold_overlap, _overlap_windows
-from ._build import bind
-from .idg_aw_stream import (_dft_factors, _full_f32_matmul, _phase_factors,
-                            _phase_scalars)
+from . import idg_aw_stream as stream
 
-GRID_KERNEL = "idg_tile_grid"
-DEGRID_KERNEL = "idg_tile_degrid"
-MAX_SUBGRID = 128        # the kernels hold one S×S subgrid in shared memory
+GRID_KERNEL = "idg_tile_grid"        # counts of the fixed-tile route's
+DEGRID_KERNEL = "idg_tile_degrid"    # launches of the streamed kernels
+MAX_SUBGRID = stream.MAX_SUBGRID
 _launches = {GRID_KERNEL: 0, DEGRID_KERNEL: 0}
 
 
 def launch_count(kernel: str = GRID_KERNEL) -> int:
-    """Launches of a CUDA kernel (:data:`GRID_KERNEL` or
-    :data:`DEGRID_KERNEL`) since the last reset."""
+    """Launches of the streamed CUDA gridder (:data:`GRID_KERNEL`) or
+    degridder (:data:`DEGRID_KERNEL`) by this route since the last reset;
+    the streamed module's own counts rise with them."""
     return _launches[kernel]
 
 
@@ -79,22 +79,18 @@ class TileGeometry(NamedTuple):
     def n_sub(self) -> int:
         return self.nty * self.ntx
 
-    @property
-    def padded_shape(self):
-        return ((self.nty + 1) * self.T, (self.ntx + 1) * self.T)
-
 
 def tile_geometry(grid_shape, subgrid: int) -> TileGeometry:
     """The subgrid tiling of an ``[N, Nx]`` grid.  Raises ``ValueError`` for
-    an odd subgrid (the fold needs S = 2T) and ``NotImplementedError`` above
-    :data:`MAX_SUBGRID`."""
+    an odd subgrid (the tiling needs S = 2T) and ``NotImplementedError``
+    above :data:`MAX_SUBGRID`."""
     S = int(subgrid)
     if S < 2 or S % 2:
         raise ValueError(f"the fixed-tile IDG needs an even subgrid, got {S}")
     if S > MAX_SUBGRID:
         raise NotImplementedError(
-            f"subgrid {S} exceeds the fixed-tile kernels' {MAX_SUBGRID}: "
-            "they hold one subgrid in shared memory")
+            f"subgrid {S} exceeds the streamed kernels' largest instance, "
+            f"{MAX_SUBGRID}")
     T = S // 2
     N, Nx = grid_shape
     return TileGeometry(S, T, -(-(N + 2 * T) // T) + 1,
@@ -263,192 +259,78 @@ def from_jax_tile_records(recs, starts, order=None, valid=None,
             torch.as_tensor(np.array(valid, bool), device=device))
 
 
-def _members(starts, occ):
-    """For the occupied subgrids ``occ``: the index into ``occ`` of every
-    record in ``[0, starts[-1])`` (records are sorted by subgrid)."""
-    counts = (starts[1:] - starts[:-1]).long()[occ.long()]
-    return torch.repeat_interleave(
-        torch.arange(occ.numel(), device=starts.device), counts)
-
-
-def _occupied(starts):
-    return torch.nonzero(starts[1:] > starts[:-1]).squeeze(1)
-
-
-def grid_from_records_plain(recs, starts, *, grid_shape, theta: float,
-                            subgrid: int = 64, taper_beta: float = 12.0):
-    """Plain PyTorch version of the CUDA gridder, with its arguments: the
-    padded complex64 grid ``[(nty + 1)·T, (ntx + 1)·T]`` on the records'
-    device.
-
-    Records are taken in chunks and their rank-1 phase terms summed into
-    per-subgrid accumulators with ``index_add_``; the DFT sandwich runs as
-    one batched product over the occupied subgrids, and the reference's
-    per-subgrid patches are folded with ``_fold_overlap``."""
-    geo = tile_geometry(grid_shape, subgrid)
-    N, Nx = grid_shape
-    S = geo.S
-    dev = recs.device
-    patches = torch.zeros((geo.n_sub, S, S), dtype=torch.complex64,
-                          device=dev)
-    occ = _occupied(starts)
-    if occ.numel():
-        slot = _members(starts, occ)
-        phases = _phase_factors(S, theta, theta * Nx / N, dev)
-        chunk = (2**25 if dev.type == "cuda" else 2**21) // (S * S)
-        acc = torch.zeros((occ.numel(), S, S, 2), dtype=torch.float32,
-                          device=dev)
-        with _full_f32_matmul():
-            for c0 in range(0, slot.numel(), chunk):
-                hi = min(c0 + chunk, slot.numel())
-                dy, dx, w, vr, vi = recs[:, c0:hi]
-                ey, ex = phases(dy, dx, w)
-                u = torch.complex(vr, vi)[:, None] * ey
-                acc.index_add_(0, slot[c0:hi], torch.view_as_real(
-                    u[:, :, None] * ex[:, None, :]))
-            F, FT = _dft_factors(S, taper_beta, dev)
-            patches[occ] = F @ torch.view_as_complex(acc) @ FT
-    return _fold_overlap(patches.reshape(geo.nty, geo.ntx, S, S), geo.nty,
-                         geo.ntx, S, geo.T)
-
-
-def tile_images(grid, starts, *, subgrid: int = 64,
-                taper_beta: float = 12.0):
-    """The degridder's prologue: the occupied subgrids' images ``a =
-    F′ᴴ·W·conj(F′)`` ``[R, S, S]`` complex64 from their windows W of the
-    padded model grid (``_overlap_windows``), and the subgrid ids ``occ``
-    ``[R]`` int32.  A batched matmul in full float32 (no TF32), outside the
-    kernel as in the reference; empty subgrids are skipped."""
-    N, Nx = grid.shape
-    geo = tile_geometry((N, Nx), subgrid)
-    S, T = geo.S, geo.T
-    dev = grid.device
-    gp = torch.zeros(geo.padded_shape, dtype=torch.complex64, device=dev)
-    gp[T:T + N, T:T + Nx] = grid
-    occ = _occupied(starts)
-    wins = _overlap_windows(gp, geo.nty, S, T, geo.ntx).reshape(
-        geo.n_sub, S, S)[occ]
-    F, _ = _dft_factors(S, taper_beta, dev)
-    with _full_f32_matmul():
-        a_sub = F.conj().T @ wins @ F.conj()
-    return a_sub.contiguous(), occ.to(torch.int32)
-
-
-def degrid_from_records_plain(recs, starts, order, occ, a_sub, *,
-                              grid_shape, theta: float, subgrid: int = 64):
-    """Plain PyTorch version of the CUDA degridder, with its arguments:
-    ``[n]`` complex64 visibilities in original order from the occupied
-    subgrids' images ``a_sub`` (:func:`tile_images`), on the records'
-    device.  Records past ``starts[-1]`` (excluded) predict exactly 0."""
-    N, Nx = grid_shape
-    S = int(subgrid)
-    dev = recs.device
-    out = torch.zeros((order.shape[0],), dtype=torch.complex64, device=dev)
-    if occ.numel() == 0:
-        return out
-    slot = _members(starts, occ)
-    phases = _phase_factors(S, theta, theta * Nx / N, dev)
-    chunk = (2**25 if dev.type == "cuda" else 2**22) // (S * S)
-    with _full_f32_matmul():
-        for c0 in range(0, slot.numel(), chunk):
-            hi = min(c0 + chunk, slot.numel())
-            ey, ex = phases(*recs[:3, c0:hi])
-            t = torch.einsum("bqr,br->bq", a_sub[slot[c0:hi]], ex.conj())
-            out[order[c0:hi].long()] = torch.sum(ey.conj() * t, dim=1)
-    return out
-
-
-def _check_cuda_records(recs, starts, rows: int, n_sub: int, *others):
-    if recs.dtype != torch.float32 or recs.dim() != 2 \
-            or recs.shape[0] != rows:
-        raise ValueError(f"recs must be [{rows}, n] float32, got "
-                         f"{tuple(recs.shape)} {recs.dtype}")
-    if starts.dtype != torch.int32 or tuple(starts.shape) != (n_sub + 1,):
-        raise ValueError(f"starts must be [{n_sub + 1}] int32, got "
-                         f"{tuple(starts.shape)} {starts.dtype}")
-    for t in (recs, starts, *others):
-        if t.device != recs.device:
-            raise ValueError("all kernel inputs must be on one device")
-        if not t.is_contiguous():
-            raise ValueError("kernel inputs must be contiguous")
-
-
-def _padded_side(S: int) -> int:
-    """The kernels' register tiling: S rounded up to a multiple of 16."""
-    return -(-S // 16) * 16
+class TileRuns(NamedTuple):
+    """The run table of the subgrids (:func:`tile_runs`)."""
+    starts_ext: torch.Tensor   # [R + 1] int32: run r is [ext[r], ext[r + 1])
+    y0: torch.Tensor           # [R] int32 origins in the S-padded grid
+    x0: torch.Tensor
+    pair: torch.Tensor         # [R] int32 zeros: pair 0, the unit screen
 
 
 @functools.lru_cache(maxsize=16)
-def _padded_dft(S: int, taper_beta: float, device):
-    """The gridder's taper-folded DFT factor and its transpose, zero-padded
-    to the kernel's tiling; built once per (S, β, device) and only read."""
-    SP = _padded_side(S)
-    F = torch.zeros((SP, SP), dtype=torch.complex64, device=device)
-    F[:S, :S] = _dft_factors(S, taper_beta, device)[0]
-    return F, F.T.contiguous()
-
-
-def _grid_from_records_cuda(recs, starts, *, grid_shape, theta: float,
-                            subgrid: int, taper_beta: float):
-    """Launch ``csrc/idg_tile_grid.cu`` on the current stream; returns the
-    padded grid.  Raises on bad inputs and on a refused launch."""
+def _origin_table(grid_shape, subgrid: int, device):
+    """Per subgrid id: its window's origin ``(gy·T + T, gx·T + T)`` in the
+    streamed kernels' S-padded grid ``[N + 2S, Nx + 2S]`` (``[2, n_sub]``
+    int32), whether that origin lies outside ``[0, N + S] × [0, Nx + S]``,
+    where the kernel's S×S patch would leave the grid (``[n_sub]`` bool),
+    ``[n_sub]`` int32 zeros and the ``[1, S, S]`` unit screen; built once
+    per (shape, S, device) and only read."""
     geo = tile_geometry(grid_shape, subgrid)
-    _check_cuda_records(recs, starts, 5, geo.n_sub)
     N, Nx = grid_shape
-    S, dev = geo.S, recs.device
-    HP, WP = geo.padded_shape
-    out = torch.zeros((HP, WP), dtype=torch.complex64, device=dev)
-    F, FT = _padded_dft(S, float(taper_beta), dev)
-    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn, err = bind("idg_tile_grid", "idg_tile_grid",
-                   [vp, ctypes.c_longlong, vp, ci, ci, vp, vp, vp, ci, ci,
-                    ci, cf, cf, cf, vp])
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(recs.data_ptr(), recs.shape[1], starts.data_ptr(),
-                geo.n_sub, geo.ntx, F.data_ptr(), FT.data_ptr(),
-                out.data_ptr(), WP, S, geo.T,
-                *_phase_scalars(S, theta, N, Nx), stream)
-    if rc != 0:
-        raise RuntimeError(f"{GRID_KERNEL} launch failed: "
-                           f"{err(rc).decode()} ({rc})")
-    _launches[GRID_KERNEL] += 1
-    return out
+    S, T = geo.S, geo.T
+    t = torch.arange(geo.n_sub, dtype=torch.int32, device=device)
+    gy = torch.div(t, geo.ntx, rounding_mode="floor")
+    org = torch.stack([gy * T + T, (t - gy * geo.ntx) * T + T])
+    bad = (org[0] > N + S) | (org[1] > Nx + S)
+    return (org.contiguous(), bad, torch.zeros_like(t),
+            torch.ones((1, S, S), dtype=torch.complex64, device=device))
 
 
-def _degrid_from_records_cuda(recs, starts, order, occ, a_sub, *,
-                              grid_shape, theta: float, subgrid: int):
-    """Launch ``csrc/idg_tile_degrid.cu`` on the current stream; returns the
-    visibilities in original order.  Raises on bad inputs and on a refused
-    launch."""
+def _table(starts, grid_shape, subgrid: int) -> TileRuns:
+    """:func:`tile_runs`' table without its check: views of ``starts`` and
+    of the cached origin table, no device work."""
     geo = tile_geometry(grid_shape, subgrid)
-    S = geo.S
-    _check_cuda_records(recs, starts, 3, geo.n_sub, order, occ, a_sub)
-    n = recs.shape[1]
-    if order.dtype != torch.int32 or tuple(order.shape) != (n,):
-        raise ValueError(f"order must be [{n}] int32")
-    R = occ.shape[0]
-    if occ.dtype != torch.int32 or occ.dim() != 1:
-        raise ValueError("occ must be a 1-D int32 tensor")
-    if a_sub.dtype != torch.complex64 or tuple(a_sub.shape) != (R, S, S):
-        raise ValueError(f"a_sub must be [{R}, {S}, {S}] complex64")
-    N, Nx = grid_shape
-    dev = recs.device
-    out = torch.zeros((n,), dtype=torch.complex64, device=dev)
-    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn, err = bind("idg_tile_degrid", "idg_tile_degrid",
-                   [vp, ctypes.c_longlong, vp, vp, ci, vp, vp, ci, cf, cf,
-                    cf, vp, vp])
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(recs.data_ptr(), n, starts.data_ptr(), occ.data_ptr(), R,
-                a_sub.data_ptr(), order.data_ptr(), S,
-                *_phase_scalars(S, theta, N, Nx), out.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"{DEGRID_KERNEL} launch failed: "
-                           f"{err(rc).decode()} ({rc})")
-    _launches[DEGRID_KERNEL] += 1
-    return out
+    if tuple(starts.shape) != (geo.n_sub + 1,):
+        raise ValueError(f"starts must be [{geo.n_sub + 1}], got "
+                         f"{tuple(starts.shape)}")
+    org, _, zeros, _ = _origin_table(tuple(grid_shape), geo.S, starts.device)
+    return TileRuns(starts, org[0], org[1], zeros)
+
+
+def _check_origins(starts, grid_shape, subgrid: int) -> None:
+    """:func:`tile_runs`' check: one flag read back from the device."""
+    bad = _origin_table(tuple(grid_shape), int(subgrid), starts.device)[1]
+    if bool(torch.any((starts[1:] > starts[:-1]) & bad)):
+        raise ValueError("an occupied subgrid's origin lies outside the "
+                         "padded grid: these are not the fixed-tile prep's "
+                         "records for this grid")
+
+
+def tile_runs(starts, grid_shape, subgrid: int) -> TileRuns:
+    """The fixed-tile records as the streamed kernels' run table: subgrid
+    ``t`` is run ``t``, its records ``[starts[t], starts[t + 1])``, its
+    origin ``(gy·T + T, gx·T + T)`` (the window's, moved from the T-padded
+    layout to the S-padded one; S = 2T) and pair 0.  ``starts`` is the
+    table's ``starts_ext`` as it stands; records past ``starts[-1]``
+    belong to no run.  The empty subgrids stay in the table: they cost the
+    kernels a read or an idle block each, less than compacting the table
+    to the occupied ones costs a call (a ``nonzero`` and its host sync).
+    The same table serves both devices.
+
+    Raises ``ValueError`` if an occupied subgrid's origin lies outside
+    ``[0, N + S]`` (rows) or ``[0, Nx + S]`` (columns), where its S×S patch
+    would leave the S-padded grid.  Both preps keep inside by construction
+    (the multi prep's centred window included).  On the card the wrappers
+    check after their launch, where the read-back waits behind the kernel
+    instead of holding its launch back: the gridder kernel skips such a run
+    and flags it, the degridder's wrapper runs this check."""
+    runs = _table(starts, grid_shape, subgrid)
+    _check_origins(starts, grid_shape, subgrid)
+    return runs
+
+
+def _unit_screen(grid_shape, subgrid: int, device):
+    return _origin_table(tuple(grid_shape), int(subgrid), device)[3]
 
 
 def idg_grid_from_records(recs, starts, grid_shape, *, theta: float,
@@ -456,38 +338,53 @@ def idg_grid_from_records(recs, starts, grid_shape, *, theta: float,
     """IDG gridding of a binned record stream (:func:`idg_bin_records`);
     returns the ``[N, Nx]`` complex64 grid (the reference returns its real
     and imaginary planes; the port keeps one complex grid, as its other
-    gridders do).  CUDA tensors launch the CUDA kernel; CPU tensors take
-    the plain version."""
-    geo = tile_geometry(grid_shape, subgrid)
+    gridders do).  The subgrids run on the streamed gridder
+    (:func:`tile_runs`): CUDA tensors launch ``csrc/idg_grid.cu``, CPU
+    tensors take its plain version.  Raises as :func:`tile_runs` does, on
+    the card after the launch."""
+    r = _table(starts, grid_shape, subgrid)
+    args = (recs, r.starts_ext[:-1], r.starts_ext[1:], r.y0, r.x0, r.pair,
+            r.pair, _unit_screen(grid_shape, subgrid, recs.device))
     kw = dict(grid_shape=grid_shape, theta=theta, subgrid=subgrid,
               taper_beta=taper_beta)
     if recs.is_cuda:
-        gp = _grid_from_records_cuda(recs, starts, **kw)
+        # the kernel counts the runs it skips for leaving the grid: the
+        # check reads that flag back, after the launch
+        gp, outside = stream._grid_from_records_cuda(*args, **kw)
+        _launches[GRID_KERNEL] += 1
+        if bool(outside):
+            _check_origins(starts, grid_shape, subgrid)
     elif recs.device.type == "cpu":
-        gp = grid_from_records_plain(recs, starts, **kw)
+        _check_origins(starts, grid_shape, subgrid)
+        gp = stream.grid_from_records_plain(*args, **kw)
     else:
         raise ValueError(f"no gridder for device {recs.device}")
     N, Nx = grid_shape
-    return gp[geo.T:geo.T + N, geo.T:geo.T + Nx]
+    S = subgrid
+    return gp[S:S + N, S:S + Nx]
 
 
 def idg_degrid_from_records(recs, starts, order, grid, *, theta: float,
                             subgrid: int = 64, taper_beta: float = 12.0):
     """IDG degridding of the ``[N, Nx]`` model grid at the records of
     :func:`prep_with_order`; returns ``[n]`` complex64 visibilities in the
-    records' original order, 0 for excluded records.  The prologue
-    (:func:`tile_images`) runs on either device; CUDA tensors then launch
-    the CUDA kernel, CPU tensors take the plain version."""
-    a_sub, occ = tile_images(grid, starts, subgrid=subgrid,
-                             taper_beta=taper_beta)
-    kw = dict(grid_shape=tuple(grid.shape), theta=theta, subgrid=subgrid)
+    records' original order, 0 for excluded records.  The subgrids run on
+    the streamed degridder (:func:`tile_runs`), which reads each window of
+    the model grid itself (zero outside it): CUDA tensors launch
+    ``csrc/idg_degrid.cu``, CPU tensors take its plain version.  Raises
+    as :func:`tile_runs` does, on the card after the launch."""
+    shape = tuple(grid.shape)
+    r = _table(starts, shape, subgrid)
+    if not recs.is_cuda:
+        _check_origins(starts, shape, subgrid)
+    v = stream.idg_aw_degrid_from_records_stream(
+        recs, r.starts_ext, r.y0, r.x0, r.pair, r.pair, order, grid,
+        _unit_screen(shape, subgrid, recs.device), theta=theta,
+        subgrid=subgrid, taper_beta=taper_beta)
     if recs.is_cuda:
-        return _degrid_from_records_cuda(recs, starts, order, occ, a_sub,
-                                         **kw)
-    if recs.device.type == "cpu":
-        return degrid_from_records_plain(recs, starts, order, occ, a_sub,
-                                         **kw)
-    raise ValueError(f"no degridder for device {recs.device}")
+        _launches[DEGRID_KERNEL] += 1
+        _check_origins(starts, shape, subgrid)
+    return v
 
 
 def idg_gridder_tile(grid_shape, p, w, vis, *, theta: float,

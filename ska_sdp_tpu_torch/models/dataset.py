@@ -224,7 +224,7 @@ def _idg_staged(uvw: torch.Tensor, f: torch.Tensor, vis: torch.Tensor, *,
     """The IDG imaging program on ``uvw``'s device as four separately
     synchronised stages, timed by ``timer.device_stage``: ``preprocess``
     (wavelengths, weights, mirroring), ``bin+sort`` (the fixed-tile prep),
-    ``idg-kernel+fold`` (the fixed-tile gridder) and
+    ``idg-kernel+fold`` (the fixed-tile route's gridder) and
     ``hermitian+ifft+taper``; ``fov_pad`` as in :func:`_idg_pipeline`.
     Every stage runs twice (warm-up, then timed).  Returns ``(img,
     image max)``."""
@@ -264,7 +264,7 @@ def idg_gridding(datfile: str, n: Optional[int] = None,
     """IDG imaging run from an HDF5 file: load ``/vis``, image on
     ``device``, optionally write ``/img`` (float64).  ``device_phases``
     runs the stage-synchronised :func:`_idg_staged` (through the
-    fixed-tile kernels, whatever the subgrid) and records its stage times
+    fixed-tile route, whatever the subgrid) and records its stage times
     in ``timer``.  Returns ``(image max, image as numpy)``."""
     timer = timer or PhaseTimer()
     with timer.phase("ingest/vis"):
@@ -614,7 +614,7 @@ def idg_predict(datfile: str, modelfile: str, n: Optional[int] = None,
                 device="cuda"):
     """IDG prediction run from HDF5 files: ``/vis`` records and the
     ``/img`` model in, ``/vis/model`` out.  The default ``subgrid=32`` is
-    the reference's; with support 15 it runs on the fixed-tile degridder.
+    the reference's; with support 15 it runs on the fixed-tile route.
     Returns ``(predicted ndarray, peak |vis|)``."""
     data = load_vis_data(datfile)
     img = h5.read_dataset(modelfile, schema.IMG_DATASET)

@@ -19,10 +19,11 @@ planned on the host from the data's uv extent (:func:`plan_channel_groups`).
   ==========================  ====================  ======================
 
 Plain IDG grids each channel through the streamed kernel with unit screens
-(``csrc/idg_grid.cu``) unless the reference's run-table test sends the
-group to the fixed-tile kernel (``csrc/idg_tile_grid.cu``); IDG-AW through
-the streamed kernel with antenna screens; w-projection through the bank
-scatter (``csrc/wproj_grid.cu``), which needs no binning.
+(``csrc/idg_grid.cu``); where the reference's run-table test sends the
+group to the fixed-tile prep, its occupied subgrids become the same
+kernel's runs (``kernels/idg_tile.py``).  IDG-AW goes through the streamed
+kernel with antenna screens; w-projection through the bank scatter
+(``csrc/wproj_grid.cu``), which needs no binning.
 
 Weighting: by default one uniform-weight histogram at the group's reference
 channel serves every channel of the group; ``SKA_SDP_TPU_EXACT_WEIGHTS=1``
@@ -62,7 +63,7 @@ from .dataset import (VisData, _aw_screens, _bank, _detect_time_major_layout,
 C_LIGHT = 299792458.0
 SUPPORT = 15
 # The reference's run-table capacity (its SMEM CSR): a group whose tile
-# bound exceeds it takes the fixed-tile kernel.  The port keeps the test so
+# bound exceeds it takes the fixed-tile prep.  The port keeps the test so
 # that the branch, and with it every drop count, is the reference's.
 RUN_TABLE_CAP = 24576
 
@@ -155,7 +156,8 @@ def _idg_multi_pipeline(uvw, f_ref, ratios, vis_mc, *, theta: float,
     ``ratios`` ``[g]`` (a tensor in ``uvw``'s dtype) are ``f_c/f_ref``.
     The branch is the reference's: the streamed kernel with unit screens
     and zero pair ids when the tile bound (from its fixed taper tail of 12
-    cells) fits :data:`RUN_TABLE_CAP`, else the fixed-tile kernel.  Returns
+    cells) fits :data:`RUN_TABLE_CAP`, else the fixed-tile prep (on the
+    same kernel, ``kernels/idg_tile.py``).  Returns
     ``(cube [g, n, n], masked [g] int64, branch)``; the streamed branch's
     counts include the prep's own drops."""
     n_t, n_grid, theta_g, crop_lo = fov_pad_geometry(theta, lam, fov_pad)

@@ -28,7 +28,8 @@ from ska_sdp_tpu_torch.kernels import idg_aw_stream
 from ska_sdp_tpu_torch.kernels.idg_aw_records import (
     from_jax_degrid_records, idg_aw_degrid_records, idg_aw_run_records)
 
-from test_torch_idg_grid import (SPLIT_TOL, _complex3, _exponent, _factor64,
+from test_torch_idg_grid import (SPLIT_SUBGRIDS, SPLIT_TOL, _complex3,
+                                 _crop_padded, _exponent, _factor64, _pad,
                                  _screens, _split_c, random_problem,
                                  track_problem)
 
@@ -363,10 +364,10 @@ class TestBandFold:
 
 def _main_path_phases(S, nb, seed):
     """``nb`` records at the main path's phase range (|dy|, |dx| < S/2 − 8
-    cells, |w| ≤ 100,000 λ at θ = 0.008: |ph| to ~110 rad): their
-    complex64 phase factors ``(e_y, e_x)``, each ``[nb, S]``."""
+    cells (S/4 below S = 32), |w| ≤ 100,000 λ at θ = 0.008: |ph| to ~110
+    rad): their complex64 phase factors ``(e_y, e_x)``, each ``[nb, S]``."""
     rng = np.random.default_rng(seed)
-    d = S / 2 - 8
+    d = max(S / 2 - 8, S / 4)
     dy, dx = (torch.as_tensor(rng.uniform(-d, d, nb).astype(np.float32))
               for _ in range(2))
     w = torch.as_tensor(rng.uniform(-1e5, 1e5, nb).astype(np.float32))
@@ -391,32 +392,36 @@ class TestSplitF16DegridNumerics:
     by powers of two below 16, and the contraction t = I·conj(E_x) per
     16-deep step (I scaled per run, E_x by 8), three passes each, float32
     sums, then the float32 weighting by conj(e_y) and the sum over q;
-    against float64."""
+    against float64.  On the kernel instance's side SP, with W, I and the
+    phase factors zero from S on where SP > S."""
 
-    @pytest.mark.parametrize("S", [32, 64, 128])
+    @pytest.mark.parametrize("S", SPLIT_SUBGRIDS)
     def test_contraction_and_weighting(self, S):
+        SP = idg_aw_stream.padded_side(S)
         img = _run_image(S, seed=S)
         ey, ex = _main_path_phases(S, 96, seed=S + 1)
         want = torch.einsum(
             "bq,qr,br->b", ey.conj().to(torch.complex128),
             img.to(torch.complex128), ex.conj().to(torch.complex128))
         e_i = _exponent(img)
-        I_s = img * 2.0 ** (4 - e_i)
-        E = ex.conj() * 8.0                              # [b, r]
+        I_s = _pad(img * 2.0 ** (4 - e_i), SP)
+        E = _pad(ex.conj() * 8.0, SP, (1,))              # [b, r], r < SP
         got = []
         for c0 in range(0, ex.shape[0], 32):             # the kernel's chunks
-            t = torch.zeros((S, 32), dtype=torch.complex64)
-            for k0 in range(0, S, 16):                   # its 16-deep steps
+            t = torch.zeros((SP, 32), dtype=torch.complex64)
+            for k0 in range(0, SP, 16):                  # its 16-deep steps
                 t += _complex3(_split_c(I_s[:, k0:k0 + 16].contiguous()),
                                _split_c(E[c0:c0 + 32, k0:k0 + 16].T
                                         .contiguous()))
-            v = (ey[c0:c0 + 32].conj().T * t).sum(0)      # float32
+            assert not t[S:].any()                       # rows q ≥ S
+            v = (ey[c0:c0 + 32].conj().T * t[:S]).sum(0)  # float32
             got.append(v * 2.0 ** (e_i - 7))
         got = torch.cat(got)
         assert _rel(got.numpy(), want.numpy()) < SPLIT_TOL
 
-    @pytest.mark.parametrize("S", [32, 64, 128])
+    @pytest.mark.parametrize("S", SPLIT_SUBGRIDS)
     def test_adjoint_sandwich(self, S):
+        SP = idg_aw_stream.padded_side(S)
         rng = np.random.default_rng(200 + S)
         W = torch.as_tensor(1e3 * _random_grid(rng, (S, S)))
         F = _factor64(S)
@@ -425,22 +430,26 @@ class TestSplitF16DegridNumerics:
         h = ((P[0], P[1]), (P[2], P[3]))
         hT = tuple(tuple(x.T for x in pair) for pair in h)
         e_w = _exponent(W)
-        B = _complex3(h, _split_c(W * 2.0 ** (4 - e_w)))
+        B = _complex3(h, _split_c(_pad(W, SP) * 2.0 ** (4 - e_w)))
         e_b = _exponent(B)
         T = _complex3(_split_c(B * 2.0 ** (4 - e_b)), hT)
         got = T * 2.0 ** (e_b - 4) / (256 * S * S) * 2.0 ** (e_w - 4)
+        got = _crop_padded(got, S)
         assert _rel(got.numpy(), want.numpy()) < SPLIT_TOL
 
-    @pytest.mark.parametrize("S", [32, 64, 128])
+    @pytest.mark.parametrize("S", SPLIT_SUBGRIDS)
     def test_adjoint_planes_split_the_float64_factor(self, S):
+        SP = idg_aw_stream.padded_side(S)
         H = _factor64(S).conj().T * (16 * S)
         P = idg_aw_stream._dft_planes_adjoint(S, 12.0)
-        assert P.dtype == torch.float16 and P.shape == (4, S, S)
+        assert P.dtype == torch.float16 and P.shape == (4, SP, SP)
         assert P.is_contiguous()
+        assert not P[:, S:].any() and not P[:, :, S:].any()
         for k, part in ((0, H.real), (2, H.imag)):
             assert float(part.abs().max()) <= 16
-            assert torch.equal(P[k], part.to(torch.float16))
-            err = (P[k].double() + P[k + 1].double() - part).abs().max()
+            assert torch.equal(P[k, :S, :S], part.to(torch.float16))
+            err = (P[k, :S, :S].double() + P[k + 1, :S, :S].double()
+                   - part).abs().max()
             assert float(err) <= 2.0 ** -21 * float(part.abs().max())
 
 
@@ -467,7 +476,9 @@ def _long_run_records(S, seed, device):
 
 @pytest.mark.cuda
 class TestCudaKernel:
-    @pytest.mark.parametrize("S,support", [(32, 9), (64, 15), (128, 15)])
+    @pytest.mark.parametrize("S,support", [(32, 9), (64, 15), (128, 15),
+                                           (16, 3), (20, 5), (48, 15),
+                                           (80, 15), (96, 15), (112, 15)])
     def test_kernel_matches_plain_on_card(self, cuda_device, S, support):
         rng = np.random.default_rng(100 + S)
         p, w, a1, a2, _ = track_problem(rng, nant=6, ntime=64)

@@ -246,6 +246,33 @@ class TestGridderPieces:
             idg_aw_stream._check_cuda_inputs(recs.t().contiguous().t(),
                                              runs, scr, S)
 
+    def test_subgrid_envelope_and_padding(self):
+        # any even S from 2 to 128 reaches a kernel instance of side
+        # 16·⌈S/16⌉; the wrappers zero-pad the screens (and planes) to it
+        for S in range(2, 129, 2):
+            idg_aw_stream._check_subgrid(S)
+            SP = idg_aw_stream.padded_side(S)
+            assert SP % 16 == 0 and S <= SP < S + 16
+        assert [idg_aw_stream.padded_side(S) for S in (32, 64, 128)] == [
+            32, 64, 128]
+        for S in (0, 31, 33, 130):
+            with pytest.raises(ValueError, match="subgrid"):
+                idg_aw_stream._check_subgrid(S)
+        scr = torch.randn((3, 20, 20), dtype=torch.complex64)
+        p = idg_aw_stream._padded_screens(scr, 20)
+        assert p.shape == (3, 32, 32) and torch.equal(p[:, :20, :20], scr)
+        assert not p[:, 20:].any() and not p[:, :, 20:].any()
+        unit = torch.ones((1, 64, 64), dtype=torch.complex64)
+        assert idg_aw_stream._padded_screens(unit, 64) is unit
+        # a CUDA launch at an odd or oversize subgrid is refused before the
+        # kernel: the check comes first
+        recs = torch.zeros((5, 4))
+        runs = tuple(torch.zeros((2,), dtype=torch.int32) for _ in range(6))
+        with pytest.raises(ValueError, match="subgrid"):
+            idg_aw_stream._grid_from_records_cuda(
+                recs, *runs, torch.ones((1, 33, 33), dtype=torch.complex64),
+                grid_shape=(N, N), theta=THETA, subgrid=33, taper_beta=12.0)
+
 
 def _planes(x):
     """The kernel's split of a float32 tensor: float32 values of its fp16
@@ -289,11 +316,11 @@ def _exponent(z):
 
 def _long_run(S, nb=2242, seed=0):
     """One run of ``nb`` records at the main path's phase range (|dy|,
-    |dx| < S/2 − 8 cells, |w| ≤ 100,000 λ at θ = 0.008: |ph| to ~110
-    rad), visibilities of order 1e3: ``(v [b], u [b, S], e_x [b, S])``
-    complex64 from the plain version's phase factors."""
+    |dx| < S/2 − 8 cells (S/4 below S = 32), |w| ≤ 100,000 λ at θ = 0.008:
+    |ph| to ~110 rad), visibilities of order 1e3: ``(v [b], u [b, S], e_x
+    [b, S])`` complex64 from the plain version's phase factors."""
     rng = np.random.default_rng(seed)
-    d = S / 2 - 8
+    d = max(S / 2 - 8, S / 4)
     dy, dx = (torch.as_tensor(rng.uniform(-d, d, nb).astype(np.float32))
               for _ in range(2))
     w = torch.as_tensor(rng.uniform(-1e5, 1e5, nb).astype(np.float32))
@@ -311,6 +338,28 @@ def _factor64(S, beta=12.0):
             * kaiser_taper(S, beta, torch.float64)[None, :])
 
 
+def _pad(x, SP, dims=(-2, -1)):
+    """``x`` zero-padded to SP along ``dims``, as the kernels hold an S×S
+    operand on the instance of side SP."""
+    pad = [0, 0] * x.dim()
+    for d in dims:
+        pad[2 * (x.dim() - 1 - d % x.dim()) + 1] = SP - x.shape[d]
+    return torch.nn.functional.pad(x, pad)
+
+
+def _crop_padded(x, S):
+    """The S×S corner of an emulated SP×SP result, checking that the rest
+    is exactly 0."""
+    assert not x[S:].any() and not x[:, S:].any()
+    return x[:S, :S]
+
+
+# 32, 64, 128: their own kernel instances; 16, 48, 96: emulated on the
+# padded side 16·⌈S/16⌉ (48 and 96 are their own padded sides, with one
+# warp and two warps across; 16 the smallest)
+SPLIT_SUBGRIDS = [32, 64, 128, 16, 48, 96]
+
+
 SPLIT_TOL = 1e-6     # ~3e-7 of float64; split-bf16 gives 4e-6–6e-6
 
 
@@ -318,13 +367,16 @@ class TestSplitF16Numerics:
     """The CUDA gridder's arithmetic, emulated on the CPU: its products
     (the accumulation a = u·e_xᵀ and the sandwich F·t·Fᵀ) on split-fp16
     planes of operands scaled by powers of two below 16, three passes each,
-    float32 sums, against float64."""
+    float32 sums, against float64; on the kernel instance's side SP, with
+    the operands zero from S on where SP > S."""
 
-    @pytest.mark.parametrize("S", [32, 64, 128])
+    @pytest.mark.parametrize("S", SPLIT_SUBGRIDS)
     def test_accumulation(self, S):
+        SP = idg_aw_stream.padded_side(S)
         v, u, ex = _long_run(S, seed=S)
         want = u.to(torch.complex128).T @ ex.to(torch.complex128)
-        got = torch.zeros((S, S), dtype=torch.complex64)
+        u, ex = _pad(u, SP, (1,)), _pad(ex, SP, (1,))   # zero rows q ≥ S
+        got = torch.zeros((SP, SP), dtype=torch.complex64)
         for c0 in range(0, v.shape[0], 32):       # the kernel's chunks
             e = _exponent(v[c0:c0 + 32])
             us = u[c0:c0 + 32] * 2.0 ** (3 - e)
@@ -332,35 +384,42 @@ class TestSplitF16Numerics:
                 part = _complex3(_split_c(us[k0:k0 + 16].T.contiguous()),
                                  _split_c(ex[c0 + k0:c0 + k0 + 16]))
                 got += part * 2.0 ** (e - 3)
+        got = _crop_padded(got, S)
         assert _rel(got.numpy(), want.numpy()) < SPLIT_TOL
 
-    @pytest.mark.parametrize("S", [32, 64, 128])
+    @pytest.mark.parametrize("S", SPLIT_SUBGRIDS)
     def test_sandwich(self, S):
+        SP = idg_aw_stream.padded_side(S)
         _, u, ex = _long_run(S, seed=S + 1)
         a = (u.to(torch.complex128).T @ ex.to(torch.complex128))
         rng = np.random.default_rng(S)
-        scr = torch.as_tensor(_screens(rng, 2, S))
-        t = a.to(torch.complex64) * torch.conj(scr[0] * scr[1])
+        scr = idg_aw_stream._padded_screens(
+            torch.as_tensor(_screens(rng, 2, S)), S)
+        t = _pad(a.to(torch.complex64), SP) * torch.conj(scr[0] * scr[1])
         F = _factor64(S)
-        want = F @ t.to(torch.complex128) @ F.T
-        P = idg_aw_stream._dft_planes(S, 12.0).float()  # 16·S·F
+        want = F @ t[:S, :S].to(torch.complex128) @ F.T
+        P = idg_aw_stream._dft_planes(S, 12.0).float()  # 16·S·F, padded
         f = ((P[0], P[1]), (P[2], P[3]))
         fT = tuple(tuple(x.T for x in pair) for pair in f)
         e_t = _exponent(t)
         B = _complex3(f, _split_c(t * 2.0 ** (4 - e_t)))
         got = _complex3(_split_c(B), fT) * 2.0 ** (e_t - 12) / (S * S)
+        got = _crop_padded(got, S)
         assert _rel(got.numpy(), want.numpy()) < SPLIT_TOL
 
-    @pytest.mark.parametrize("S", [32, 64, 128])
+    @pytest.mark.parametrize("S", SPLIT_SUBGRIDS)
     def test_dft_planes_split_the_float64_factor(self, S):
+        SP = idg_aw_stream.padded_side(S)
         F = _factor64(S) * (16 * S)
         P = idg_aw_stream._dft_planes(S, 12.0)
-        assert P.dtype == torch.float16 and P.shape == (4, S, S)
+        assert P.dtype == torch.float16 and P.shape == (4, SP, SP)
         assert P.is_contiguous()
+        assert not P[:, S:].any() and not P[:, :, S:].any()
         for k, part in ((0, F.real), (2, F.imag)):
             assert float(part.abs().max()) <= 16
-            assert torch.equal(P[k], part.to(torch.float16))
-            err = (P[k].double() + P[k + 1].double() - part).abs().max()
+            assert torch.equal(P[k, :S, :S], part.to(torch.float16))
+            err = (P[k, :S, :S].double() + P[k + 1, :S, :S].double()
+                   - part).abs().max()
             assert float(err) <= 2.0 ** -21 * float(part.abs().max())
 
 
@@ -552,7 +611,10 @@ class TestCudaTensorCoreKernel:
         err = _rel(g.cpu().numpy(), plain.cpu().numpy())
         assert np.isfinite(err) and err < TOL
 
-    @pytest.mark.parametrize("S", [32, 64, 128])
+    # 32, 64, 128: their own instances; the rest on the instance of side
+    # 16·⌈S/16⌉, one warp across where that side / 16 is odd
+    @pytest.mark.parametrize("S", [32, 64, 128, 16, 20, 48, 80, 96, 112,
+                                   126])
     def test_subgrids_random_screens(self, cuda_device, S):
         rng = np.random.default_rng(50 + S)
         lengths = rng.integers(1, 600, 400)

@@ -1,7 +1,9 @@
 """Port parity: the fixed-tile IDG gridder and degridder, their prep and the
 stage-timed IDG pipeline against the JAX reference (``idg_pallas`` and
 ``idg_degrid_pallas`` run as their own tests run them on the CPU: Pallas
-interpret mode; and the XLA oracle ``ops.idg.idg_grid_wproj``).
+interpret mode; and the XLA oracle ``ops.idg.idg_grid_wproj``).  The port
+runs the fixed-tile records on the streamed kernels: ``TestTileRuns`` holds
+its run table exactly to the prep's ``starts`` and the origin formula.
 
 Bounds: the prep's ``starts`` and ``valid`` match exactly and its rows
 within 1e-6, compared per subgrid in a canonical order (the reference's
@@ -11,9 +13,9 @@ exactly 0; the adjoint identity ``<G, grid(v)> = <degrid(G), v>`` to
 relative 1e-5; images within 1e-4 over the central 75%, the image contract
 (the taper division amplifies any difference toward the edge).
 
-On the CPU the wrappers take the plain versions; the CUDA kernels
-themselves are checked by the ``cuda``-marked tests, which skip without a
-card.
+On the CPU the wrappers take the streamed kernels' plain versions; the
+CUDA kernels themselves are checked by the ``cuda``-marked tests, which
+skip without a card.
 """
 
 import os
@@ -23,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from ska_sdp_tpu_torch.kernels import idg_aw_stream as stream
 from ska_sdp_tpu_torch.kernels import idg_tile
 from ska_sdp_tpu_torch.utils.timing import PhaseTimer
 
@@ -45,10 +48,13 @@ def jref():
     from ska_sdp_tpu.kernels.idg_degrid_pallas import (
         _prep_with_order, idg_degrid_wproj_pallas)
     from ska_sdp_tpu.kernels.idg_pallas import (
-        idg_bin_records, idg_grid_from_records, idg_gridder_pallas)
+        idg_bin_records, idg_bin_records_multi, idg_grid_from_records,
+        idg_gridder_pallas, idg_records_for_channel)
     from ska_sdp_tpu.ops.idg import idg_grid_wproj
 
     return SimpleNamespace(jnp=jnp, bin_records=idg_bin_records,
+                           bin_records_multi=idg_bin_records_multi,
+                           records_for_channel=idg_records_for_channel,
                            prep_with_order=_prep_with_order,
                            grid_from_records=idg_grid_from_records,
                            gridder=idg_gridder_pallas,
@@ -169,6 +175,125 @@ class TestPrep:
                                      support=15)
         with pytest.raises(ValueError, match="support"):
             idg_tile.prep_with_order((N, N), p, w, subgrid=16, support=15)
+
+
+def _edge_problem(shape, S, support, seed, b=600):
+    """Random records with support anchors pinned to the grid's first and
+    last rows and columns (``y0 = −s + 1`` and ``y0 = N − 1``), where the
+    subgrids' origins reach their extremes, and two channels of random
+    visibilities."""
+    N, Nx = shape
+    s = support
+    rng = np.random.default_rng(seed)
+    p = np.zeros((b, 3), np.float32)
+    p[:, :2] = rng.uniform(-0.52, 0.52, (b, 2))
+    p[:20, 1] = (N - 1 + s // 2 - N // 2) / N
+    p[20:40, 0] = (Nx - 1 + s // 2 - Nx // 2) / Nx
+    p[40:60, 1] = (1 - s + s // 2 - N // 2) / N
+    p[60:80, 0] = (1 - s + s // 2 - Nx // 2) / Nx
+    w = rng.uniform(-250.0, 250.0, b).astype(np.float32)
+    vis = (rng.standard_normal((2, b))
+           + 1j * rng.standard_normal((2, b))).astype(np.complex64)
+    return p, w, vis
+
+
+class TestTileRuns:
+    """The fixed-tile records as the streamed kernels' run table."""
+
+    @staticmethod
+    def _check(r, starts, shape, S):
+        """Run t is subgrid t: its records ``[starts[t], starts[t + 1])``,
+        its origin ``(gy·T + T, gx·T + T)`` and pair 0; returns the occupied
+        subgrids' origins, which must lie inside ``[0, N + S] × [0, Nx +
+        S]``."""
+        st = starts.numpy()
+        geo = idg_tile.tile_geometry(shape, S)
+        assert all(x.dtype == torch.int32 for x in r)
+        np.testing.assert_array_equal(r.starts_ext.numpy(), st)
+        t = np.arange(geo.n_sub)
+        np.testing.assert_array_equal(r.y0.numpy(),
+                                      (t // geo.ntx) * geo.T + geo.T)
+        np.testing.assert_array_equal(r.x0.numpy(),
+                                      (t % geo.ntx) * geo.T + geo.T)
+        assert r.pair.shape == (geo.n_sub,) and not r.pair.numpy().any()
+        occ = np.nonzero(st[1:] > st[:-1])[0]
+        y0, x0 = r.y0.numpy()[occ], r.x0.numpy()[occ]
+        N, Nx = shape
+        assert 0 <= y0.min() and y0.max() <= N + S
+        assert 0 <= x0.min() and x0.max() <= Nx + S
+        return y0, x0
+
+    @pytest.mark.parametrize("shape", SHAPES)
+    @pytest.mark.parametrize("S,support", CASES)
+    def test_single_channel_preps(self, S, support, shape):
+        p, w, vis, _ = random_problem(130 + S, shape=shape)
+        pt, wt, vt = _t(p, w, vis)
+        _, starts = idg_tile.idg_bin_records(
+            shape, pt, wt, vt.real, vt.imag, subgrid=S, support=support)
+        self._check(idg_tile.tile_runs(starts, shape, S), starts, shape, S)
+        _, dstarts, _, _ = idg_tile.prep_with_order(
+            shape, pt, wt, subgrid=S, support=support)
+        self._check(idg_tile.tile_runs(dstarts, shape, S), dstarts, shape,
+                    S)
+
+    @pytest.mark.parametrize("S,support,shape,c0", [
+        (20, 11, (250, 230), -1),     # c0 = -1, the origins' bound tight
+        (32, 15, (256, 256), 0),
+        (32, 15, (250, 230), 0)])
+    def test_multi_prep_centred_window(self, jref, S, support, shape, c0):
+        # the multi prep clamps its centred stride cell: with c0 = −1 an
+        # anchor on the last row sits in the subgrid whose origin is N + S,
+        # the last one whose patch still fits the S-padded grid
+        assert (S - support) // 2 - (S // 2) // 2 == c0
+        p, w, vis = _edge_problem(shape, S, support, 140 + S)
+        pt, wt, vt = _t(p, w, vis)
+        base, vis_s, starts = idg_tile.idg_bin_records_multi(
+            shape, pt, wt, vt.real, vt.imag, subgrid=S, support=support)
+        y0, x0 = self._check(idg_tile.tile_runs(starts, shape, S), starts,
+                             shape, S)
+        N, Nx = shape
+        if c0 < 0 and N % (S // 2) == 0 and Nx % (S // 2) == 0:
+            assert y0.max() == N + S and x0.max() == Nx + S
+        # and the route grids each channel as the reference does
+        jnp = jref.jnp
+        base_j, vis_j, st_j = jref.bin_records_multi(
+            shape, jnp.asarray(p), jnp.asarray(w), jnp.asarray(vis.real),
+            jnp.asarray(vis.imag), subgrid=S, support=support)
+        np.testing.assert_array_equal(starts.numpy(), np.asarray(st_j))
+        for c, ratio in enumerate((1.0, 1.0)):
+            recs_j, nm_j = jref.records_for_channel(
+                base_j, vis_j[c], ratio, subgrid=S, support=support)
+            gr, gi = jref.grid_from_records(recs_j, st_j, shape, theta=THETA,
+                                            subgrid=S, interpret=True)
+            want = np.asarray(gr) + 1j * np.asarray(gi)
+            recs, nm = idg_tile.idg_records_for_channel(
+                base, vis_s[c], ratio, subgrid=S, support=support)
+            got = idg_tile.idg_grid_from_records(recs, starts, shape,
+                                                 theta=THETA, subgrid=S)
+            assert int(nm) == int(nm_j)
+            assert _rel(got.numpy(), want) < TOL
+
+    def test_raises_on_out_of_range_origin(self):
+        shape, S = (N, 192), 32
+        geo = idg_tile.tile_geometry(shape, S)
+        p, w, vis, _ = random_problem(150, shape=shape)
+        pt, wt, vt = _t(p, w, vis)
+        recs, starts = idg_tile.idg_bin_records(
+            shape, pt, wt, vt.real, vt.imag, subgrid=S)
+        idg_tile.tile_runs(starts, shape, S)          # the prep's: fine
+        # one record in the last row's last subgrid, origin (nty·T, ntx·T),
+        # or in the first row's last one, origin (T, ntx·T): both lie past
+        # the S-padded grid's last origin, and the patch would leave it
+        for t in (geo.n_sub - 1, geo.ntx - 1):
+            bad = torch.zeros_like(starts)
+            bad[t + 1:] = 1
+            with pytest.raises(ValueError, match="origin"):
+                idg_tile.tile_runs(bad, shape, S)
+            with pytest.raises(ValueError, match="origin"):
+                idg_tile.idg_grid_from_records(recs[:, :1], bad, shape,
+                                               theta=THETA, subgrid=S)
+        with pytest.raises(ValueError, match="starts"):
+            idg_tile.tile_runs(starts[:-1], shape, S)
 
 
 class TestGridder:
@@ -404,10 +529,29 @@ class TestPhaseTimer:
         assert not quiet.enabled and quiet.trace_dir is None
 
 
+def _plain_route(recs, starts, shape, S, *, theta, order=None, grid=None):
+    """The fixed-tile route's plain version on the records' device: the
+    run table of :func:`idg_tile.tile_runs` through the streamed module's
+    plain gridder (cropped as the wrapper crops it) or, with ``order`` and
+    ``grid``, its plain degridder."""
+    r = idg_tile.tile_runs(starts, shape, S)
+    unit = torch.ones((1, S, S), dtype=torch.complex64, device=recs.device)
+    if grid is None:
+        g = stream.grid_from_records_plain(
+            recs, r.starts_ext[:-1], r.starts_ext[1:], r.y0, r.x0, r.pair,
+            r.pair, unit, grid_shape=shape, theta=theta, subgrid=S)
+        return g[S:S + shape[0], S:S + shape[1]]
+    return stream.degrid_from_records_plain(
+        recs, r.starts_ext, r.y0, r.x0, r.pair, r.pair, order, grid, unit,
+        theta=theta, subgrid=S)
+
+
 @pytest.mark.cuda
 class TestCudaKernels:
     @pytest.mark.parametrize("S", [16, 32, 48, 64, 128])
     def test_kernels_match_plain_on_card(self, cuda_device, S):
+        # the route launches the streamed kernels, once each, and agrees
+        # with their plain versions on the same run table
         support = min(15, S // 2 + 1)
         shape = (512, 384)
         p, w, vis, grid = random_problem(90 + S, b=20000, shape=shape)
@@ -416,13 +560,12 @@ class TestCudaKernels:
         recs, starts = idg_tile.idg_bin_records(
             shape, pt, wt, vt.real, vt.imag, subgrid=S, support=support)
         idg_tile.reset_launch_count()
+        stream.reset_launch_count()
         k = idg_tile.idg_grid_from_records(recs, starts, shape, **kw)
         torch.cuda.synchronize()
         assert idg_tile.launch_count(idg_tile.GRID_KERNEL) == 1
-        geo = idg_tile.tile_geometry(shape, S)
-        pl = idg_tile.grid_from_records_plain(
-            recs, starts, grid_shape=shape, **kw)[
-                geo.T:geo.T + shape[0], geo.T:geo.T + shape[1]]
+        assert stream.launch_count(stream.GRID_KERNEL) == 1
+        pl = _plain_route(recs, starts, shape, S, theta=THETA)
         assert _rel(k.cpu().numpy(), pl.cpu().numpy()) < TOL
 
         drecs, dstarts, order, valid = idg_tile.prep_with_order(
@@ -430,9 +573,31 @@ class TestCudaKernels:
         v = idg_tile.idg_degrid_from_records(drecs, dstarts, order, gt, **kw)
         torch.cuda.synchronize()
         assert idg_tile.launch_count(idg_tile.DEGRID_KERNEL) == 1
-        a_sub, occ = idg_tile.tile_images(gt, dstarts, subgrid=S)
-        vp = idg_tile.degrid_from_records_plain(
-            drecs, dstarts, order, occ, a_sub, grid_shape=shape, **kw)
+        assert stream.launch_count(stream.DEGRID_KERNEL) == 1
+        vp = _plain_route(drecs, dstarts, shape, S, theta=THETA, order=order,
+                          grid=gt)
         vn, vpn = v.cpu().numpy(), vp.cpu().numpy()
         assert _rel(vn, vpn) < TOL
         assert np.all(vn[~valid.cpu().numpy()] == 0)
+
+    def test_out_of_range_origin_raises_on_card(self, cuda_device):
+        # records in a subgrid whose patch would leave the S-padded grid:
+        # the gridder kernel skips and flags the run, the wrappers raise
+        shape, S = (512, 384), 32
+        geo = idg_tile.tile_geometry(shape, S)
+        recs = torch.zeros((5, 4), device=cuda_device)
+        recs[3] = 1.0
+        drecs = torch.zeros((3, 4), device=cuda_device)
+        order = torch.arange(4, dtype=torch.int32, device=cuda_device)
+        grid = torch.ones(shape, dtype=torch.complex64, device=cuda_device)
+        for t in (geo.n_sub - 1, geo.ntx - 1):
+            bad = torch.zeros((geo.n_sub + 1,), dtype=torch.int32,
+                              device=cuda_device)
+            bad[t + 1:] = 4
+            with pytest.raises(ValueError, match="origin"):
+                idg_tile.idg_grid_from_records(recs, bad, shape, theta=THETA,
+                                               subgrid=S)
+            with pytest.raises(ValueError, match="origin"):
+                idg_tile.idg_degrid_from_records(drecs, bad, order, grid,
+                                                 theta=THETA, subgrid=S)
+        torch.cuda.synchronize()

@@ -151,25 +151,6 @@ class TestIDGHelpers:
             got = _np(idg._dft_matrix(S, tdt))
             assert np.abs(got - want).max() < tol
 
-    @pytest.mark.parametrize("S,nty,ntx", [(16, 5, 7), (32, 4, 4),
-                                           (48, 3, 5)])
-    def test_fold_overlap_and_windows(self, S, nty, ntx):
-        # exact: the fold adds at most four blocks per cell in the same
-        # order, and the windows are copies
-        rng = np.random.default_rng(S + nty)
-        T = S // 2
-        blocks = _cplx(rng, (nty, ntx, S, S))
-        want = _np(j_idg._fold_overlap(jnp.asarray(blocks), nty, ntx, S, T))
-        got = _np(idg._fold_overlap(torch.as_tensor(blocks), nty, ntx, S, T))
-        assert got.shape == ((nty + 1) * T, (ntx + 1) * T)
-        np.testing.assert_array_equal(got, want)
-        gp = _cplx(rng, got.shape)
-        want = _np(j_idg._overlap_windows(jnp.asarray(gp), nty, S, T, ntx))
-        got = _np(idg._overlap_windows(torch.as_tensor(gp), nty, S, T, ntx))
-        np.testing.assert_array_equal(got, want)
-        with pytest.raises(ValueError):
-            idg._fold_overlap(torch.as_tensor(blocks), nty, ntx, S, T + 1)
-
     @pytest.mark.parametrize("S,s", [(32, 15), (64, 15), (128, 15),
                                      (64, 7)])
     def test_auto_fit_margin(self, S, s):

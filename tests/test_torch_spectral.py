@@ -604,15 +604,21 @@ class TestCudaKernels:
         shape = (512, 512)
         base, vis_s, starts = idg_tile.idg_bin_records_multi(
             shape, pt, wt, vt.real, vt.imag, subgrid=32)
-        geo = idg_tile.tile_geometry(shape, 32)
         recs, _ = idg_tile.idg_records_for_channel(base, vis_s[0], 1.0,
                                                    subgrid=32)
         idg_tile.reset_launch_count()
+        stream.reset_launch_count()
         k = idg_tile.idg_grid_from_records(recs, starts, shape, theta=THETA,
                                            subgrid=32)
         torch.cuda.synchronize()
         assert idg_tile.launch_count(idg_tile.GRID_KERNEL) == 1
-        pl = idg_tile.grid_from_records_plain(
-            recs, starts, grid_shape=shape, theta=THETA, subgrid=32)[
-                geo.T:geo.T + 512, geo.T:geo.T + 512]
+        assert stream.launch_count(stream.GRID_KERNEL) == 1
+        # the streamed plain gridder on the route's run table
+        r = idg_tile.tile_runs(starts, shape, 32)
+        unit = torch.ones((1, 32, 32), dtype=torch.complex64,
+                          device=cuda_device)
+        pl = stream.grid_from_records_plain(
+            recs, r.starts_ext[:-1], r.starts_ext[1:], r.y0, r.x0, r.pair,
+            r.pair, unit, grid_shape=shape, theta=THETA,
+            subgrid=32)[32:32 + 512, 32:32 + 512]
         assert _rel(k.cpu().numpy(), pl.cpu().numpy()) < TOL
