@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Chip smoke test of ska_sdp_tpu_torch: the ported imaging, prediction and
-spectral-cube paths end to end on one NVIDIA GPU, through the hand-written
-CUDA kernels (the streamed IDG gridder and degridder, which also serve the
-fixed-tile IDG route, the bank w-projection scatter and gather, the fused
-AW gridder).
+spectral-cube paths and the PSF-normalised imaging end to end on one NVIDIA
+GPU, through the hand-written CUDA kernels (the streamed IDG gridder and
+degridder, which also serve the fixed-tile IDG route and IDG-AW at every
+even subgrid, the bank w-projection scatter, which also serves ``--mode
+conv`` and ``wcache``, and gather, the fused AW gridder).
 
     python3 chip_smoke.py
 
@@ -178,7 +179,29 @@ result line):
 25. cube times (CUDA events, median of 7 after a warm-up): each cube end to
     end in channel-visibilities per second, the multi preps, and one
     channel's kernel, with the kernel's bound for the 8 channels (the
-    streamed gridder's tensor-core bound beside it).
+    streamed gridder's tensor-core bound beside it);
+26. IDG-AW at S=48 (the kernels' SP=48 instance, an odd multiple of 16) on
+    phase 4's observation with phase 17's near-delta A-kernels of its 512
+    stations as per-antenna screens: the streamed gridder and degridder on
+    the main path's records (phase 8's model for the degridder) against
+    their plain versions, rel-L2 ≤ 5e-5; ``aw_idg_image(subgrid=48)`` and
+    ``aw_predict_vis(subgrid=48)``, each with the launch counts reset just
+    before, against the same entries on the plain versions (image rel-L2 ≤
+    1e-4 over the central 75%, predictions ≤ 5e-5), no drops, at least one
+    launch of each kernel, the image's peak at a source; printed without a
+    bound, the image against phase 4's S=64 image; the kernels' and the
+    entries' times and the kernels' bounds;
+27. the PSF-normalised imaging (``models.dataset.psf_image``: the
+    reference CLI's ``--mode simple``, ``conv`` and ``wcache`` through
+    ``do_imaging``, default ``wstep``) on phase 4's observation, each with
+    the launch counts reset just before: a finite image and PSF, the PSF's
+    peak 1 after the normalisation; ``simple`` runs no hand-written kernel
+    (no scatter launch) and has its peak at a source; ``conv`` and
+    ``wcache`` launch the bank scatter twice (image and PSF), each launch
+    within 5e-5 of the plain scatter on its inputs, and the image and PSF
+    within 1e-4 of the same entry on the plain scatter; the bank's plane
+    count, the scatter's time on the image launch's records beside its
+    plain version and its bound, and each mode's time end to end.
 
 The line before last is the ``nvidia-smi`` name and power limit, the one
 before it a JSON summary of the kernels (``replaces`` lists each TPU
@@ -822,6 +845,8 @@ def main() -> int:
         print_ptxas(_build.build_log, k, padded=True)
     tile = tile_phases(torch, dev, card, vd, obs, img, model, truth)
     spectral_phases(torch, dev, card, mid)
+    aw48 = aw48_phases(torch, dev, card, vd, obs, img, model)
+    psf = psf_phases(torch, dev, card, vd, obs)
 
     print(json.dumps({"kernels": [{
         "name": stream.GRID_KERNEL,
@@ -845,7 +870,7 @@ def main() -> int:
                     "ska_sdp_tpu/kernels/idg_aw_stream_pallas.py:1014, "
                     "ska_sdp_tpu/kernels/idg_aw_degrid_pallas.py:82",
         **degrid,
-    }, *wproj, aw, *tile]}))
+    }, *wproj, aw, *tile, *aw48, *psf]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
@@ -1988,9 +2013,12 @@ def tile_phases(torch, dev, card, vd, obs, img64, model, truth):
 
 @contextlib.contextmanager
 def plain_kernels(torch):
-    """Route the cube entries (``models/spectral.py``) through the plain
-    versions of their kernels, on the tensors' own device."""
+    """Route the cube entries (``models/spectral.py``), the IDG-AW entries
+    (``kernels.idg_aw_gridder`` and ``idg_aw_degridder``) and the imaging
+    functions of ``models/imaging.py`` through the plain versions of their
+    kernels, on the tensors' own device."""
     from ska_sdp_tpu_torch.kernels import idg_aw_stream as stream
+    from ska_sdp_tpu_torch.models import imaging
     from ska_sdp_tpu_torch.models import spectral as sp
     from ska_sdp_tpu_torch.ops.gridding import convgrid_wproj
 
@@ -2010,16 +2038,26 @@ def plain_kernels(torch):
             shape, dtype=vis.dtype, device=vis.device), p, wbin, vis,
             chunk=chunk)
 
-    names = ("idg_aw_grid_from_records_stream", "idg_grid_from_records",
-             "wproj_gridder")
-    saved = [getattr(sp, k) for k in names]
-    for k, fn in zip(names, (streamed, tile, scatter)):
-        setattr(sp, k, fn)
+    def degrid(recs, starts_ext, y0, x0, ia1, ia2, order_s, grid, scr, *,
+               theta, subgrid, taper_beta):
+        return stream.degrid_from_records_plain(
+            recs, starts_ext, y0, x0, ia1, ia2, order_s, grid, scr,
+            theta=theta, subgrid=subgrid, taper_beta=taper_beta)
+
+    patches = ((sp, "idg_aw_grid_from_records_stream", streamed),
+               (sp, "idg_grid_from_records", tile),
+               (sp, "wproj_gridder", scatter),
+               (stream, "idg_aw_grid_from_records_stream", streamed),
+               (stream, "idg_aw_degrid_from_records_stream", degrid),
+               (imaging, "wproj_gridder", scatter))
+    saved = [getattr(mod, k) for mod, k, _ in patches]
+    for mod, k, fn in patches:
+        setattr(mod, k, fn)
     try:
         yield
     finally:
-        for k, fn in zip(names, saved):
-            setattr(sp, k, fn)
+        for (mod, k, _), fn in zip(patches, saved):
+            setattr(mod, k, fn)
 
 
 def peak_at_source(img, srcs, label):
@@ -2297,6 +2335,273 @@ def spectral_phases(torch, dev, card, mid):
            lambda: wproj.wproj_gridder(bank_c, (n, n), p0, wbin, vis1[0],
                                        chunk=8192),
            8 * taps, nbytes(bank_c, p0, wbin, vis1[0]) + n * n * 8)
+
+
+def aw48_phases(torch, dev, card, vd, obs, img64, model):
+    """Phase 26: IDG-AW at S=48 (the kernels' SP=48 instance, an odd
+    multiple of 16) on the main path.  ``vd``/``obs`` are the main path's
+    observation, ``img64`` phase 4's S=64 ``idg_image`` and ``model``
+    phase 8's snapped-source model.  Returns the gridder's and the
+    degridder's entries of the ``kernels`` line."""
+    from ska_sdp_tpu_torch.kernels import idg_aw_stream as stream
+    from ska_sdp_tpu_torch.kernels.idg_aw_records import (
+        idg_aw_degrid_records, idg_aw_run_records)
+    from ska_sdp_tpu_torch.models import dataset as ds
+    from ska_sdp_tpu_torch.ops.idg_aw import PAIR_SHIFT
+    from ska_sdp_tpu_torch.types import SINGLE
+
+    S = 48
+    n_vis = vd.vis.shape[0]
+    ak = main_akerns()
+    kw = dict(theta=THETA, lam=LAM, subgrid=S, taper_beta=BETA, device=dev)
+
+    # ---- 26a. #1 and #2 at S=48 on the main path's records ----------------
+    scr = ds._aw_screens(ak, S, THETA, LAM, None, SINGLE, dev)
+    uvw, f, vis = ds.idg_inputs(vd, device=dev)
+    a1, a2 = (torch.as_tensor(a.astype(np.int32), device=dev)
+              for a in (vd.antenna1, vd.antenna2))
+    layout = ds._detect_time_major_layout(vd.antenna1, vd.antenna2, vd.time,
+                                          n_vis)
+    mr = ds._aw_run_bound(vd.antenna1, vd.antenna2, n_vis)
+    ga, a1g, a2g = ds.aw_grid_inputs(uvw, a1, a2, f, vis, theta=THETA,
+                                     lam=LAM, layout=layout)
+    shape = ga.grid_shape
+    kg = dict(theta=ga.theta, subgrid=S, taper_beta=BETA)
+    recs = idg_aw_run_records(shape, ga.p, a1g, a2g, ga.w, ga.vis.real,
+                              ga.vis.imag, subgrid=S, support=SUPPORT,
+                              max_runs=mr, ordered=layout is not None,
+                              nant=scr.shape[0])
+    k = stream.idg_aw_grid_from_records_stream(*recs[:7], shape, scr, **kg)
+    pl = stream.grid_from_records_plain(*recs[:7], scr, grid_shape=shape,
+                                        **kg)[S:S + shape[0], S:S + shape[1]]
+    kn, pn = k.cpu().numpy(), pl.cpu().numpy()
+    err_g, max_abs_g = rel_l2(kn, pn), float(np.abs(kn - pn).max())
+    n_runs, longest, mean = run_stats(recs[1], recs[2])
+    d = ds.degrid_inputs(torch.as_tensor(model, device=dev), uvw, f,
+                         theta=THETA, lam=LAM, subgrid=S, taper_beta=BETA)
+    drecs = idg_aw_degrid_records(tuple(d.grid.shape), d.p, a1, a2, d.w,
+                                  subgrid=S, support=SUPPORT, max_runs=mr)
+    kd = stream.idg_aw_degrid_from_records_stream(*drecs[:7], d.grid, scr,
+                                                  **kg)
+    pd = stream.degrid_from_records_plain(*drecs[:7], d.grid, scr, **kg)
+    kdn, pdn = kd.cpu().numpy(), pd.cpu().numpy()
+    err_d, max_abs_d = rel_l2(kdn, pdn), float(np.abs(kdn - pdn).max())
+    print(f"IDG-AW S=48 kernel parity ({shape[0]}², {n_vis} records of the "
+          f"main path, {scr.shape[0]} per-antenna screens of near-delta "
+          f"A-kernels, the SP=48 instance): grid rel-L2 {err_g:.3e} "
+          f"({n_runs} runs, longest {longest}, mean {mean:.2f}), degrid of "
+          f"phase 8's model rel-L2 {err_d:.3e} (bound {KERNEL_TOL}); "
+          f"n_dropped prep grid {int(recs[7])} degrid {int(drecs[8])}")
+    if not (err_g <= KERNEL_TOL and err_d <= KERNEL_TOL):
+        raise AssertionError(f"S=48 kernel parity failed: {err_g}, {err_d}")
+
+    # ---- 26b. aw_idg_image and aw_predict_vis at S=48 ----------------------
+    stream.reset_launch_count()
+    res = ds.aw_idg_image(vd, ak, **kw)
+    torch.cuda.synchronize()
+    launches_g = stream.launch_count(stream.GRID_KERNEL)
+    with plain_kernels(torch):
+        ref = ds.aw_idg_image(vd, ak, **kw)
+    img, img_p = res.image.cpu().numpy(), ref.image.cpu().numpy()
+    err_img = rel_l2(crop75(img), crop75(img_p))
+    print(f"S=48 main path: aw_idg_image {img.shape[0]}² from {n_vis} vis, "
+          f"image max {res.image_max:.6g}, n_dropped {res.n_dropped} "
+          f"(expected 0), gridder launches {launches_g}; vs the same "
+          f"pipeline on the plain versions rel-L2 {err_img:.3e} over the "
+          f"central 75% (bound {IMAGE_TOL}); vs phase 4's S=64 IDG image "
+          f"(no bound): {rel_l2(crop75(img), crop75(img64)):.3e}")
+    if not np.isfinite(img).all():
+        raise AssertionError("S=48 IDG-AW image has non-finite pixels")
+    if res.n_dropped != 0 or ref.n_dropped != 0:
+        raise AssertionError(f"S=48 IDG-AW imaging dropped {res.n_dropped}")
+    if launches_g < 1:
+        raise AssertionError("aw_idg_image(subgrid=48) did not launch the "
+                             "streamed gridder")
+    if not err_img <= IMAGE_TOL:
+        raise AssertionError(f"S=48 IDG-AW image parity failed: {err_img}")
+    peak_at_source(img, obs["sources"], "aw_idg_image S=48")
+
+    stream.reset_launch_count()
+    pred = ds.aw_predict_vis(vd, ak, model, **kw)
+    torch.cuda.synchronize()
+    launches_d = stream.launch_count(stream.DEGRID_KERNEL)
+    with plain_kernels(torch):
+        ref_p = ds.aw_predict_vis(vd, ak, model, **kw)
+    err_pred = rel_l2(pred.vis.cpu().numpy(), ref_p.vis.cpu().numpy())
+    print(f"S=48 predict main path: aw_predict_vis of phase 8's model to "
+          f"{n_vis} vis, peak |vis| {pred.peak:.6g}, n_dropped "
+          f"{pred.n_dropped}, degridder launches {launches_d}; vs the plain "
+          f"degridder rel-L2 {err_pred:.3e} (bound {KERNEL_TOL})")
+    if not torch.isfinite(pred.vis).all():
+        raise AssertionError("S=48 IDG-AW prediction has non-finite values")
+    if pred.n_dropped != 0:
+        raise AssertionError(f"S=48 IDG-AW predict dropped {pred.n_dropped}")
+    if launches_d < 1:
+        raise AssertionError("aw_predict_vis(subgrid=48) did not launch the "
+                             "streamed degridder")
+    if not err_pred <= KERNEL_TOL:
+        raise AssertionError(f"S=48 IDG-AW predict parity failed: "
+                             f"{err_pred}")
+
+    # ---- 26c. times ----------------------------------------------------------
+    ms = {}
+    for label, fn in (
+            ("gridder kernel (CUDA)",
+             lambda: stream.idg_aw_grid_from_records_stream(
+                 *recs[:7], shape, scr, **kg)),
+            ("gridder plain (PyTorch)",
+             lambda: stream.grid_from_records_plain(
+                 *recs[:7], scr, grid_shape=shape, **kg)),
+            ("degridder kernel (CUDA)",
+             lambda: stream.idg_aw_degrid_from_records_stream(
+                 *drecs[:7], d.grid, scr, **kg)),
+            ("degridder plain (PyTorch)",
+             lambda: stream.degrid_from_records_plain(
+                 *drecs[:7], d.grid, scr, **kg)),
+            ("aw_idg_image end to end",
+             lambda: ds.aw_idg_image(vd, ak, **kw)),
+            ("aw_predict_vis end to end",
+             lambda: ds.aw_predict_vis(vd, ak, model, **kw))):
+        ms[label] = t = timed_ms(torch, fn)
+        print(f"time S=48 {label}: {t:.3f} ms = {n_vis / t / 1e3:.2f} M "
+              f"vis/s [{card}]")
+    n_druns = int(((drecs[1][1:] > drecs[1][:-1])
+                   & (drecs[4] < PAIR_SHIFT)).sum())
+    entries = []
+    for name, label, n_r, io, max_abs, launches, replaces in (
+            (stream.GRID_KERNEL, "gridder", n_runs,
+             nbytes(*recs[:7], scr) + (shape[0] + 2 * S) ** 2 * 8,
+             max_abs_g, launches_g,
+             "ska_sdp_tpu/kernels/idg_aw_stream_pallas.py:161"),
+            (stream.DEGRID_KERNEL, "degridder", n_druns,
+             nbytes(*drecs[:7], scr, d.grid) + n_vis * 8, max_abs_d,
+             launches_d,
+             "ska_sdp_tpu/kernels/idg_aw_stream_pallas.py:475")):
+        (f_ms, f_by), (b_ms, b_by, t_tc, t_cuda) = idg_stream_bounds(
+            S, n_vis, n_r, io)
+        t = ms[f"{label} kernel (CUDA)"]
+        print(f"idg {label} bounds at S=48 ({n_r} runs, {n_vis} records): "
+              f"f32 {f_ms:.3f} ms ({f_by}); tensor core {b_ms:.3f} ms "
+              f"({b_by}: split3 products {t_tc:.3f} ms, phase factors, "
+              f"screens and sandwiches on the CUDA cores {t_cuda:.3f} ms, "
+              f"bytes {io / HBM_BPS * 1e3:.3f} ms); the kernel at "
+              f"{100 * b_ms / t:.1f}% of it")
+        entries.append({
+            "name": f"{name} (aw_idg S=48)", "route": "cuda",
+            "source": f"ska_sdp_tpu_torch/csrc/{name[:-7]}.cu",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max_abs, "ms": t,
+            "plain_ms": ms[f"{label} plain (PyTorch)"], "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None})
+    return entries
+
+
+def psf_phases(torch, dev, card, vd, obs):
+    """Phase 27: the PSF-normalised imaging (``do_imaging``) of ``--mode
+    simple``, ``conv`` and ``wcache`` on the main path's observation
+    ``vd``/``obs``.  Returns the bank scatter's entries of the ``kernels``
+    line for ``conv`` and ``wcache``."""
+    from ska_sdp_tpu_torch.kernels import wproj
+    from ska_sdp_tpu_torch.models import dataset as ds
+    from ska_sdp_tpu_torch.models import imaging
+    from ska_sdp_tpu_torch.ops.gridding import convgrid_wproj
+
+    n_vis = vd.vis.shape[0]
+    kw = dict(theta=THETA, lam=LAM, device=dev)
+    real_gridder = imaging.wproj_gridder
+    entries = []
+    for mode in ("simple", "conv", "wcache"):
+        calls = []
+
+        def spy(bank, shape, p, wbin, vis, chunk):
+            out = real_gridder(bank, shape, p, wbin, vis, chunk=chunk)
+            calls.append((bank, shape, p, wbin, vis, out))
+            return out
+
+        wproj.reset_launch_count()
+        imaging.wproj_gridder = spy
+        try:
+            res = ds.psf_image(vd, mode, **kw)
+            torch.cuda.synchronize()
+        finally:
+            imaging.wproj_gridder = real_gridder
+        launches = wproj.launch_count(wproj.GRID_KERNEL)
+        img = res.image.cpu().numpy()
+        n = img.shape[0]
+        print(f"do_imaging main path: --mode {mode} {n}² from "
+              f"{n_vis} vis, PSF peak {float(res.pmax):.6g}, image max "
+              f"{img.max():.6g}, bank scatter launches {launches}")
+        if not (np.isfinite(img).all()
+                and torch.isfinite(res.psf).all()):
+            raise AssertionError(f"--mode {mode}: non-finite image or PSF")
+        if abs(float(res.psf.max()) - 1.0) > 1e-6:
+            raise AssertionError(f"--mode {mode}: PSF not normalised")
+        if mode == "simple":
+            # no hand-written kernel on this path: one index_add_ scatter
+            if launches != 0:
+                raise AssertionError("--mode simple launched the scatter")
+            peak_at_source(img, obs["sources"], "do_imaging --mode simple")
+            continue
+        if launches != 2 or len(calls) != 2:
+            raise AssertionError(f"--mode {mode}: {launches} launches, not "
+                                 "2 (image and PSF)")
+        errs, max_abs = [], 0.0
+        for bank, shape, p, wbin, vis, out in calls:
+            ref = convgrid_wproj(bank, torch.zeros(
+                shape, dtype=torch.complex64, device=dev), p, wbin, vis,
+                chunk=8192)
+            on, rn = out.cpu().numpy(), ref.cpu().numpy()
+            errs.append(rel_l2(on, rn))
+            max_abs = max(max_abs, float(np.abs(on - rn).max()))
+        with plain_kernels(torch):
+            ref = ds.psf_image(vd, mode, **kw)
+        err_img = rel_l2(img, ref.image.cpu().numpy())
+        err_psf = rel_l2(res.psf.cpu().numpy(), ref.psf.cpu().numpy())
+        bank = calls[0][0]
+        print(f"  bank {tuple(bank.shape)} ({bank.shape[0]} plane"
+              f"{'s' if bank.shape[0] > 1 else ''}); each launch vs the "
+              f"plain scatter on its inputs rel-L2 "
+              f"{', '.join(f'{e:.3e}' for e in errs)} (bound {KERNEL_TOL}); "
+              f"image and PSF vs the same entry on the plain scatter rel-L2 "
+              f"{err_img:.3e}, {err_psf:.3e} (bound {IMAGE_TOL})")
+        if max(errs) > KERNEL_TOL:
+            raise AssertionError(f"--mode {mode} scatter parity: {errs}")
+        if not (err_img <= IMAGE_TOL and err_psf <= IMAGE_TOL):
+            raise AssertionError(f"--mode {mode} do_imaging parity: {err_img}, "
+                                 f"{err_psf}")
+
+        # times of the image launch's records, and its bound: 8 flop per
+        # in-bounds tap, the inputs read once and the grid written once
+        bank, shape, p, wbin, vis, _ = calls[0]
+        t_k = timed_ms(torch, lambda: wproj.wproj_gridder(
+            bank, shape, p, wbin, vis))
+        t_p = timed_ms(torch, lambda: convgrid_wproj(bank, torch.zeros(
+            shape, dtype=torch.complex64, device=dev), p, wbin, vis,
+            chunk=8192))
+        nw, qpx, _, gh, gw = bank.shape
+        y0, x0, _, valid = wproj.wproj_records(shape, qpx, gh, gw,
+                                               nw * qpx * qpx, p, wbin)
+        rows = torch.clamp(y0 + gh, max=shape[0]) - torch.clamp(y0, min=0)
+        cols = torch.clamp(x0 + gw, max=shape[1]) - torch.clamp(x0, min=0)
+        taps = int((rows.clamp(min=0) * cols.clamp(min=0))[valid].sum())
+        b_ms, b_by = bound(8 * taps, nbytes(bank, p, wbin, vis)
+                           + shape[0] * shape[1] * 8)
+        print(f"time --mode {mode} scatter kernel (CUDA): {t_k:.3f} ms, "
+              f"plain (PyTorch) {t_p:.3f} ms; bound {b_ms:.3f} ms ({b_by}; "
+              f"{taps} in-bounds taps) [{card}]")
+        entries.append({
+            "name": f"{wproj.GRID_KERNEL} (do_imaging {mode})",
+            "route": "cuda", "source": "ska_sdp_tpu_torch/csrc/wproj_grid.cu",
+            "replaces": "ska_sdp_tpu/kernels/wproj_resident_pallas.py:76, "
+                        "ska_sdp_tpu/kernels/wproj_pallas.py:77",
+            "launches": launches, "max_abs_err": max_abs, "ms": t_k,
+            "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None})
+    for mode in ("simple", "conv", "wcache"):
+        t = timed_ms(torch, lambda: ds.psf_image(vd, mode, **kw))
+        print(f"time do_imaging --mode {mode} end to end (image + PSF): "
+              f"{t:.3f} ms = {n_vis / t / 1e3:.2f} M vis/s [{card}]")
+    return entries
 
 
 if __name__ == "__main__":

@@ -13,7 +13,10 @@ track records with random A-kernels for ``aw_idg_image`` and
 card; near-delta A-kernels of the 512 stations for ``aw_image``; and the
 spectral cubes of ``chip_smoke.py`` phase 24: ``idg_cube`` (S=64) and
 ``w_cube`` of bench cell 8's 8-channel observation, ``aw_idg_cube`` of the
-8-channel track raster), each entry is called ``--warmup`` times, then
+8-channel track raster; ``aw_idg_image`` and ``aw_predict_vis`` at S=48 on
+the 512-station observation with its near-delta A-kernels; and the
+PSF-normalised imaging ``psf_image`` of ``--mode simple``, ``conv`` and
+``wcache`` on the 512-station observation), each entry is called ``--warmup`` times, then
 ``--calls`` times without the profiler and ``--calls`` times under it,
 each call ending in a synchronise.  Per entry it prints one JSON line: the
 wall time per call with the profiler off and on (host clock), the device
@@ -98,6 +101,7 @@ def main() -> int:
     kw = dict(theta=THETA, lam=LAM, device=dev)
     idg = dict(kw, subgrid=SUBGRID, taper_beta=BETA)
     idg32 = dict(idg, subgrid=32)
+    aw48 = dict(idg, subgrid=48)
     entries = {
         "idg_image": lambda: ds.idg_image(vd, **idg),
         "idg_predict_vis": lambda: ds.idg_predict_vis(vd, model, **idg),
@@ -113,6 +117,12 @@ def main() -> int:
         "idg_cube (8 ch)": lambda: sp.idg_cube(vd_c, **idg),
         "aw_idg_cube (8 ch)": lambda: sp.aw_idg_cube(vd_aw_c, ak_c, **idg),
         "w_cube (8 ch)": lambda: sp.w_cube(vd_c, bank_c, centers_c, **kw),
+        "aw_idg_image S=48": lambda: ds.aw_idg_image(vd, ak_main, **aw48),
+        "aw_predict_vis S=48": lambda: ds.aw_predict_vis(vd, ak_main, model,
+                                                         **aw48),
+        "psf_image simple": lambda: ds.psf_image(vd, "simple", **kw),
+        "psf_image conv": lambda: ds.psf_image(vd, "conv", **kw),
+        "psf_image wcache": lambda: ds.psf_image(vd, "wcache", **kw),
     }
     for name, fn in entries.items():
         bare, wall, items = profile(torch, fn, args.calls, args.warmup)

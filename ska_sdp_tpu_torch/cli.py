@@ -1,7 +1,7 @@
 """Command-line interface of the port (the ``--mode aw [--idg]``, ``--mode
-w``, ``--mode idg``, ``--mode predict [--idg [--aterms]]``, ``--channels N``
-and ``--make-data`` surfaces of ``ska_sdp_tpu/cli.py``, same flag names,
-defaults and messages).
+w``, ``--mode idg``, ``--mode predict [--idg [--aterms]]``, ``--mode
+simple|conv|wcache``, ``--channels N`` and ``--make-data`` surfaces of
+``ska_sdp_tpu/cli.py``, same flag names, defaults and messages).
 
 Examples:
     python -m ska_sdp_tpu_torch.cli --make-data data/ --nant 16 --ntime 24
@@ -13,15 +13,19 @@ Examples:
     python -m ska_sdp_tpu_torch.cli --mode idg -i data/ --all --device cpu
     python -m ska_sdp_tpu_torch.cli --mode idg --device-phases -i data/ --all
     python -m ska_sdp_tpu_torch.cli --mode aw --idg -i data/ --all -o aw.h5
+    python -m ska_sdp_tpu_torch.cli --mode aw --idg --subgrid 48 -i data/ \
+        --all -o aw48.h5
+    python -m ska_sdp_tpu_torch.cli --mode wcache -i data/ --all -o wc.h5 \
+        --wstep 2000                   # also --mode conv, --mode simple
     python -m ska_sdp_tpu_torch.cli --mode predict --idg --aterms -i data/ \
         --all --model aw.h5 -o pred.h5
     python -m ska_sdp_tpu_torch.cli --make-data data/ --nchan 4
     python -m ska_sdp_tpu_torch.cli --mode idg --channels 4 -i data/ --all \
         -o cube.h5                     # also --mode w, --mode aw --idg
 
-Every flag of the reference parses.  Modes and flags that are not ported
-yet exit with status 2 and a "not yet ported" message; ``--backend cpu``
-is ``--device cpu``.
+Every flag of the reference parses, and every mode runs.  Flags that are
+not ported yet exit with status 2 and a "not yet ported" message;
+``--backend cpu`` is ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -48,23 +52,27 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-o", "--output", default=None,
                    help="output .h5 (/img, or /vis/model for predict)")
     p.add_argument("--mode", choices=_MODES, default="aw",
-                   help="pipeline; ported: aw (fused AW-projection, or "
-                        "IDG-AW with --idg), w (bank w-projection), idg "
-                        "(image-domain gridding) and predict (model image "
-                        "-> vis: bank w-projection, or IDG / IDG-AW "
-                        "degridding with --idg)")
+                   help="pipeline: aw (fused AW-projection, or IDG-AW "
+                        "with --idg), w (bank w-projection), idg "
+                        "(image-domain gridding), predict (model image -> "
+                        "vis: bank w-projection, or IDG / IDG-AW degridding "
+                        "with --idg), and the PSF-normalised simple "
+                        "(nearest cell), conv (one kernel at the mean |w|) "
+                        "and wcache (a bank binned by --wstep)")
     p.add_argument("--subgrid", type=int, default=64,
                    help="IDG subgrid size: any even S up to 128 with "
                         "support 15 <= S/2+1 (32, 64 and 128 take the "
                         "streamed kernels' run prep where it fits, the rest "
                         "the fixed-tile prep on the same kernels); IDG-AW: "
-                        "32, 64 or 128")
+                        "any even S up to 128 that leaves a taper fit "
+                        "margin (S >= 28 with support 15)")
     p.add_argument("--fov-pad", type=float, default=None,
                    help="IDG full-FOV guarantee: grid FOV/f and crop")
     p.add_argument("--precision", choices=["single", "double"],
                    default="single",
                    help="single (complex64, the CUDA kernels) or double "
-                        "(complex128; --mode w, aw and predict on the CPU)")
+                        "(complex128: on the CPU wherever a CUDA kernel "
+                        "runs)")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (the CUDA kernels) or cpu "
                         "(their plain versions)")
@@ -92,8 +100,8 @@ def build_parser() -> argparse.ArgumentParser:
                    default=None,
                    help="the reference's gridder selector (not ported: one "
                         "route per mode)")
-    p.add_argument("--wstep", type=float, default=None,
-                   help="w-bin width for --mode wcache (not yet ported)")
+    p.add_argument("--wstep", type=float, default=2000.0,
+                   help="w-bin width for --mode wcache (ref default 2000)")
     p.add_argument("--metrics", default=None,
                    help="JSON-lines metrics file (not yet ported)")
     p.add_argument("--xla-dump", default=None, metavar="DIR",
@@ -159,11 +167,8 @@ def main(argv=None) -> int:
         print(f"wrote {paths} ({obs['n']} visibilities)")
         return 0
 
-    if args.mode not in ("w", "idg", "aw", "predict"):
-        return _not_ported(f"--mode {args.mode}")
     for flag, on in (("--backend tpu", args.backend == "tpu"),
                      ("--gridder", args.gridder),
-                     ("--wstep", args.wstep is not None),
                      ("--metrics", args.metrics),
                      ("--xla-dump", args.xla_dump),
                      ("--slab", args.slab is not None),
@@ -189,6 +194,7 @@ def main(argv=None) -> int:
     from .config import GridParams, ImagingConfig
     from .models import dataset as ds
     from .models import spectral
+    from .models.imaging import PSF_MODES
     from .utils.timing import PhaseTimer
 
     vis_path = os.path.join(args.input_dir, "vis.h5")
@@ -267,6 +273,12 @@ def main(argv=None) -> int:
                                                 **common, **idg_opts)
             result = (f"predicted {pred.shape[0]} visibilities, peak "
                       f"|vis|: {peak}")
+        elif args.mode in PSF_MODES:
+            phase = "psf_gridding"
+            with traced(phase):
+                mx, _ = ds.psf_gridding(args.mode, vis_path, **common,
+                                           wstep=args.wstep)
+            result = f"image max: {mx}"
         elif w_bank:
             phase = "w_gridding"
             with traced(phase):

@@ -12,13 +12,14 @@ from .types import Precision, precision
 @dataclasses.dataclass(frozen=True)
 class KernelOptions:
     """Options of w-kernel synthesis (the reference's field meanings):
-    oversampling, far-field and kernel sizes.  The reference's pattern
-    shift and 2×2 transform, which no ported caller sets, and its
-    ``wstep``, which belongs to the w-cache mode, are not ported."""
+    oversampling, far-field and kernel sizes, and the w-cache mode's bin
+    width.  The reference's pattern shift and 2×2 transform, which no
+    ported caller sets, are not ported."""
 
     qpx: int = 8                 # oversampling factor of the kernel
     npix_ff: int = 256           # far-field (image-plane) pixel count
     npix_kern: int = 15          # extracted convolution-kernel support
+    wstep: int = 2000            # w-bin width of the w-kernel cache (λ)
 
 
 @dataclasses.dataclass(frozen=True)

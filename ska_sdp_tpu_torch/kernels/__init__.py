@@ -18,7 +18,11 @@ takes the fixed-tile prep (``kernels/idg_tile.py``), as the reference
 does: any even S up to 128 with support ≤ S/2 + 1, no record limit, and no
 in-bounds record dropped; its occupied subgrids then run on the same
 streamed kernels.  IDG-AW rides the streamed kernels with per-antenna
-screens.
+screens at any even S up to 128 whose taper fit margin is positive (S ≥ 28
+with support 15): the run prep has no subgrid set of its own, so the
+reference's XLA realization of the other subgrids
+(``ska_sdp_tpu/ops/idg_aw.py::idg_grid_aw`` / ``idg_degrid_aw``) is the
+same operator on the same (pair, uv-tile) runs and needs no second route.
 
 Dropped records are counted per gridder and reported once per gridder on
 stderr.
@@ -33,7 +37,8 @@ import torch
 from ..ops.idg_aw import auto_fit_margin
 from .idg_aw_records import STREAM_SUBGRIDS
 from .aw_fused import aw_gridder
-from .idg_aw_stream import idg_aw_degridder_stream, idg_aw_gridder_stream
+from .idg_aw_stream import (_check_subgrid, idg_aw_degridder_stream,
+                            idg_aw_gridder_stream)
 from .idg_tile import idg_degrid_tile, idg_gridder_tile
 from .wproj import wproj_degridder, wproj_gridder
 
@@ -152,19 +157,6 @@ def idg_degridder(grid_shape, p: torch.Tensor, w: torch.Tensor,
         support=support, taper_beta=taper_beta, max_runs=mr)
 
 
-def _check_aw_subgrid(subgrid: int) -> None:
-    """The IDG-AW routes take exactly the streamed run prep's subgrids
-    (the kernels take any even S up to 128); the reference serves the
-    others with its XLA realization (``ska_sdp_tpu/ops/idg_aw.py``), which
-    the port has no counterpart of.  No margin floor applies: drops are
-    counted, not refused."""
-    if subgrid not in STREAM_SUBGRIDS:
-        raise NotImplementedError(
-            f"IDG-AW at subgrid={subgrid} is outside the streamed run "
-            f"prep's envelope {STREAM_SUBGRIDS}; the reference's XLA IDG-AW "
-            "(ska_sdp_tpu/ops/idg_aw.py) that serves it is not ported")
-
-
 def idg_aw_gridder(grid_shape, p, a1, a2, w, vis, screens, *, theta: float,
                    subgrid: int = 64, support: int = 15,
                    taper_beta: float = 12.0, max_runs: int = 4096,
@@ -176,8 +168,10 @@ def idg_aw_gridder(grid_shape, p, a1, a2, w, vis, screens, *, theta: float,
     the prep skips its sort; a poorly ordered stream overflows
     ``max_runs`` and the surplus is counted.  Returns ``(guv [N, Nx]
     complex64, n_dropped)``; callers must surface ``n_dropped``.  The grid
-    lives in device memory, so there is no banded route."""
-    _check_aw_subgrid(subgrid)
+    lives in device memory, so there is no banded route.  Raises
+    ``ValueError`` for an S the kernels do not take (odd, or outside 2 to
+    128) or one whose fit margin is not positive."""
+    _check_subgrid(subgrid)
     return idg_aw_gridder_stream(
         grid_shape, p, a1, a2, w, vis, screens, theta=theta,
         subgrid=subgrid, support=support, taper_beta=taper_beta,
@@ -192,8 +186,9 @@ def idg_aw_degridder(grid_shape, p, a1, a2, w, grid, screens, *,
     terms), the exact adjoint of :func:`idg_aw_gridder`, through the
     streamed CUDA degridder.  Returns ``(vis [n] complex64, n_dropped)``;
     dropped records predict 0 and callers count them with
-    :func:`_note_drops`."""
-    _check_aw_subgrid(subgrid)
+    :func:`_note_drops`.  Takes the subgrids :func:`idg_aw_gridder`
+    takes."""
+    _check_subgrid(subgrid)
     return idg_aw_degridder_stream(
         grid_shape, p, a1, a2, w, grid, screens, theta=theta,
         subgrid=subgrid, support=support, taper_beta=taper_beta,

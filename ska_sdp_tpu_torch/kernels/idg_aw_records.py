@@ -23,8 +23,9 @@ import torch
 
 from ..ops.idg_aw import PAIR_SHIFT, SENTINEL, _record_keys, auto_fit_margin
 
-# Subgrid sizes the streamed run prep serves (the IDG-AW routes and plain
-# IDG's run route); the kernels themselves take any even S up to 128.
+# Subgrid sizes at which plain IDG takes this run prep rather than the
+# fixed-tile prep, the reference's route and drop accounting; IDG-AW takes
+# this prep at every even S the kernels take.
 STREAM_SUBGRIDS = (32, 64, 128)
 
 

@@ -226,17 +226,26 @@ def _pair_screens(screens, ia1, ia2):
             scr[torch.clamp(ia2.long(), 0, nant - 1)])
 
 
+def _run_block(S: int, dev) -> int:
+    """Runs the plain versions take at once: their ``[R, S, S]``
+    temporaries stay within 512 MiB on a card and 64 MiB on the CPU, so a
+    run table of a million per-pair runs fits in device memory."""
+    budget = 2**29 if dev.type == "cuda" else 2**26
+    return max(1, budget // (8 * S * S))
+
+
 def grid_from_records_plain(recs, starts, ends, y0, x0, ia1, ia2, screens,
                             *, grid_shape, theta: float, subgrid: int = 64,
                             taper_beta: float = 12.0):
     """Plain PyTorch version of the CUDA gridder: the padded complex64
     grid ``[N + 2S, Nx + 2S]`` from run records, on the records' device.
 
-    Records are processed in chunks: their rank-1 phase terms
-    are summed into per-run accumulators with ``index_add_``; the pair
-    screens and the sandwich then run as one batched product over the
-    occupied runs, and the patches are added to the grid by flat index.
-    A run whose patch would leave the padded grid adds nothing, as in the
+    Occupied runs are processed in blocks of at most :func:`_run_block`
+    runs, and their records in chunks: the records' rank-1 phase terms are
+    summed into per-run accumulators with ``index_add_``; the pair screens
+    and the sandwich then run as one batched product over the block's
+    runs, and the patches are added to the grid by flat index.  A run
+    whose patch would leave the padded grid adds nothing, as in the
     kernel.
     """
     N, Nx = grid_shape
@@ -245,35 +254,36 @@ def grid_from_records_plain(recs, starts, ends, y0, x0, ia1, ia2, screens,
     dev = recs.device
     out = torch.zeros((HP, WP), dtype=torch.complex64, device=dev)
     inside = (y0 >= 0) & (x0 >= 0) & (y0 <= HP - S) & (x0 <= WP - S)
-    active = torch.nonzero((ends > starts) & inside).squeeze(1)
-    R = active.numel()
-    if R == 0:
-        return out
-    run_of, rec = _run_members(starts, ends, active)
+    active_all = torch.nonzero((ends > starts) & inside).squeeze(1)
     phases = _phase_factors(S, theta, theta * Nx / N, dev)
     chunk = 8192 if dev.type == "cuda" else 1024     # bounds the temporaries
-    acc = torch.zeros((R, S, S, 2), dtype=torch.float32, device=dev)
-    with _full_f32_matmul():
-        for c0 in range(0, rec.numel(), chunk):
-            idx = rec[c0:c0 + chunk]
-            dy, dx, w, vr, vi = recs[:, idx]
-            ey, ex = phases(dy, dx, w)
-            u = torch.complex(vr, vi)[:, None] * ey
-            outer = u[:, :, None] * ex[:, None, :]
-            acc.index_add_(0, run_of[c0:c0 + chunk],
-                           torch.view_as_real(outer))
-
-        a1, a2 = _pair_screens(screens, ia1[active], ia2[active])
-        t = torch.view_as_complex(acc) * torch.conj(a1 * a2)
-        F, FT = _dft_factors(S, taper_beta, dev)
-        patch = F @ t @ FT                                  # [R, S, S]
-
+    F, FT = _dft_factors(S, taper_beta, dev)
     ar = torch.arange(S, device=dev)
-    rows = y0[active].long()[:, None] + ar
-    cols = x0[active].long()[:, None] + ar
-    flat = (rows[:, :, None] * WP + cols[:, None, :]).reshape(-1)
-    torch.view_as_real(out).view(-1, 2).index_add_(
-        0, flat, torch.view_as_real(patch).reshape(-1, 2))
+    block = _run_block(S, dev)
+    for r0 in range(0, active_all.numel(), block):
+        active = active_all[r0:r0 + block]
+        run_of, rec = _run_members(starts, ends, active)
+        acc = torch.zeros((active.numel(), S, S, 2), dtype=torch.float32,
+                          device=dev)
+        with _full_f32_matmul():
+            for c0 in range(0, rec.numel(), chunk):
+                idx = rec[c0:c0 + chunk]
+                dy, dx, w, vr, vi = recs[:, idx]
+                ey, ex = phases(dy, dx, w)
+                u = torch.complex(vr, vi)[:, None] * ey
+                outer = u[:, :, None] * ex[:, None, :]
+                acc.index_add_(0, run_of[c0:c0 + chunk],
+                               torch.view_as_real(outer))
+
+            a1, a2 = _pair_screens(screens, ia1[active], ia2[active])
+            t = torch.view_as_complex(acc) * torch.conj(a1 * a2)
+            patch = F @ t @ FT                              # [R, S, S]
+
+        rows = y0[active].long()[:, None] + ar
+        cols = x0[active].long()[:, None] + ar
+        flat = (rows[:, :, None] * WP + cols[:, None, :]).reshape(-1)
+        torch.view_as_real(out).view(-1, 2).index_add_(
+            0, flat, torch.view_as_real(patch).reshape(-1, 2))
     return out
 
 
@@ -297,9 +307,10 @@ def degrid_from_records_plain(recs, starts_ext, y0, x0, ia1, ia2, order_s,
     grid, on the records' device.
 
     The run images ``(Fᴴ·W·conj(F)) ∘ (A[ia1]·A[ia2])`` are one batched
-    product over the occupied runs; records are then contracted in chunks
-    against their run's image and scattered to ``order_s``.  Sentinel runs
-    (pair id 2¹⁵) and records past the run table predict exactly 0.
+    product over a block of at most :func:`_run_block` occupied runs; the
+    block's records are then contracted in chunks against their run's
+    image and scattered to ``order_s``.  Sentinel runs (pair id 2¹⁵) and
+    records past the run table predict exactly 0.
     """
     S = subgrid
     N, Nx = grid.shape
@@ -308,26 +319,31 @@ def degrid_from_records_plain(recs, starts_ext, y0, x0, ia1, ia2, order_s,
     ends = torch.clamp(starts_ext[1:], max=n)
     dev = recs.device
     out = torch.zeros((n,), dtype=torch.complex64, device=dev)
-    active = torch.nonzero((ends > starts) & (ia1 < PAIR_SHIFT)).squeeze(1)
-    if active.numel() == 0:
+    active_all = torch.nonzero((ends > starts)
+                               & (ia1 < PAIR_SHIFT)).squeeze(1)
+    if active_all.numel() == 0:
         return out
-    run_of, rec = _run_members(starts, ends, active)
     ar = torch.arange(S, device=dev)
-    rows = y0[active].long()[:, None] + ar
-    cols = x0[active].long()[:, None] + ar
-    win = pad_grid(grid, S)[rows[:, :, None], cols[:, None, :]]
+    gp = pad_grid(grid, S)
     phases = _phase_factors(S, theta, theta * Nx / N, dev)
     chunk = (2**25 if dev.type == "cuda" else 2**22) // (S * S)
-    with _full_f32_matmul():
-        F, _ = _dft_factors(S, taper_beta, dev)
-        a1, a2 = _pair_screens(screens, ia1[active], ia2[active])
-        img = (F.conj().T @ win @ F.conj()) * (a1 * a2)     # [R, S, S]
-        for c0 in range(0, rec.numel(), chunk):
-            idx = rec[c0:c0 + chunk]
-            ey, ex = phases(*recs[:3, idx])
-            t = torch.einsum("bqr,br->bq", img[run_of[c0:c0 + chunk]],
-                             ex.conj())
-            out[order_s[idx].long()] = torch.sum(ey.conj() * t, dim=1)
+    F, _ = _dft_factors(S, taper_beta, dev)
+    block = _run_block(S, dev)
+    for r0 in range(0, active_all.numel(), block):
+        active = active_all[r0:r0 + block]
+        run_of, rec = _run_members(starts, ends, active)
+        rows = y0[active].long()[:, None] + ar
+        cols = x0[active].long()[:, None] + ar
+        win = gp[rows[:, :, None], cols[:, None, :]]
+        with _full_f32_matmul():
+            a1, a2 = _pair_screens(screens, ia1[active], ia2[active])
+            img = (F.conj().T @ win @ F.conj()) * (a1 * a2)  # [R, S, S]
+            for c0 in range(0, rec.numel(), chunk):
+                idx = rec[c0:c0 + chunk]
+                ey, ex = phases(*recs[:3, idx])
+                t = torch.einsum("bqr,br->bq", img[run_of[c0:c0 + chunk]],
+                                 ex.conj())
+                out[order_s[idx].long()] = torch.sum(ey.conj() * t, dim=1)
     return out
 
 

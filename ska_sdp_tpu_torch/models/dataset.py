@@ -1,7 +1,8 @@
 """Bank w-projection, fused AW, IDG and IDG-AW imaging and prediction
 pipelines (port of the ``--mode w``, ``--mode aw [--idg]``, ``--mode idg``
 and ``--mode predict [--idg [--aterms]]`` paths of
-``ska_sdp_tpu/models/dataset.py``).
+``ska_sdp_tpu/models/dataset.py``), and the PSF-normalised imaging of
+``--mode simple``, ``conv`` and ``wcache`` (the reference CLI's branch).
 
 Each path has an in-memory entry that runs on a given device and a file
 entry that reads HDF5, calls it and writes HDF5:
@@ -16,6 +17,7 @@ entry that reads HDF5, calls it and writes HDF5:
   w-projection predict        ``w_predict_vis``     ``w_predict``
   IDG predict                 ``idg_predict_vis``   ``idg_predict``
   IDG-AW predict              ``aw_predict_vis``    ``aw_predict``
+  simple / conv / wcache      ``psf_image``      ``psf_gridding``
   ==========================  ====================  ==================
 
 The imaging programs are the reference's ``_wproj_pipeline``,
@@ -33,7 +35,9 @@ where the bank and fused AW gridders pick each record's w-plane by
     model [IDG: → padded-FOV embedding → ÷ fine taper] → centred FFT
         → degridder at the records' unmirrored uvw in wavelengths
 
-There is no PSF normalisation on these paths.  ``idg_gridding(...,
+There is no PSF normalisation on these paths; ``psf_image`` runs
+``models.imaging.do_imaging``, which divides the image and the PSF by the
+PSF peak.  ``idg_gridding(...,
 device_phases=True)`` runs the IDG program as separately synchronised,
 timed stages (``_idg_staged``, the reference's ``--device-phases``).
 """
@@ -60,7 +64,7 @@ from ..ops.idg_aw import aw_screens_host
 from ..ops.search import find_closest
 from ..types import precision as _precision
 from ..utils.timing import PhaseTimer
-from .imaging import aw_imaging
+from .imaging import ImagingResult, aw_imaging, do_imaging, mode_imgfn
 
 
 class VisData(NamedTuple):
@@ -815,3 +819,52 @@ def w_predict(wfile: str, datfile: str, modelfile: str,
     pred = res.vis.cpu().numpy()
     _write_prediction(outfile, pred)
     return pred, res.peak
+
+
+# ---------------------------------------------------------------------------
+# PSF-normalised imaging: --mode simple, conv and wcache
+# ---------------------------------------------------------------------------
+
+
+def psf_image(vis_data: VisData, mode: str, *, theta: float = 0.008,
+                 lam: int = 300000, n: Optional[int] = None,
+                 wstep: float = 2000.0, precision: str = "single",
+                 device="cuda") -> ImagingResult:
+    """PSF-normalised dirty image of in-memory visibilities on ``device``
+    through ``mode``'s imaging function (``models.imaging.mode_imgfn``:
+    ``simple``, ``conv`` or ``wcache`` with bin width ``wstep``) and
+    ``do_imaging``.  ``conv`` and ``wcache`` grid through the bank scatter
+    (the CUDA kernel on ``"cuda"``, its plain version on ``"cpu"``);
+    ``simple`` runs no hand-written kernel.  ``n`` caps the record
+    count."""
+    prec = _precision(precision)
+    uvw, f = _uvw_freq(vis_data, n, prec, device)
+    m = uvw.shape[0]
+    uvw0 = uvw_lambda(f, uvw)
+    vis = torch.as_tensor(np.asarray(vis_data.vis[:m], prec.np_complex),
+                          device=device)
+    a1, a2 = (torch.as_tensor(a, device=device)
+              for a in _ant_ids(vis_data, m))
+    t = torch.as_tensor(np.asarray(vis_data.time[:m], prec.np_real),
+                        device=device)
+    return do_imaging(theta, lam, uvw0, a1, a2, t, vis_data.frequency, vis,
+                      mode_imgfn(mode, theta, uvw0, wstep))
+
+
+def psf_gridding(mode: str, datfile: str, n: Optional[int] = None,
+                    outfile: Optional[str] = None,
+                    config: ImagingConfig = ImagingConfig(),
+                    wstep: float = 2000.0, device="cuda"):
+    """PSF-normalised imaging run from an HDF5 file: ``/vis`` in,
+    optionally ``/img`` (the normalised image, in the run's precision, as
+    the reference writes it) out.  Returns ``(PSF peak, image as
+    numpy)``."""
+    data = load_vis_data(datfile)
+    res = psf_image(data, mode, theta=config.grid.theta,
+                       lam=config.grid.lam, n=n, wstep=wstep,
+                       precision=config.precision_name, device=device)
+    img = res.image.cpu().numpy()
+    if outfile is not None:
+        h5.create_file(outfile)
+        h5.write_dataset(outfile, schema.IMG_DATASET, img)
+    return float(res.pmax), img

@@ -45,10 +45,11 @@ import torch
 
 from ..config import ImagingConfig
 from ..io import h5, schema
-from ..kernels import _check_aw_subgrid, wproj_gridder
+from ..kernels import wproj_gridder
 from ..kernels.idg_aw_records import (idg_aw_records_for_channel,
                                       idg_aw_run_records_multi)
-from ..kernels.idg_aw_stream import idg_aw_grid_from_records_stream
+from ..kernels.idg_aw_stream import (_check_subgrid,
+                                     idg_aw_grid_from_records_stream)
 from ..kernels.idg_tile import (idg_bin_records_multi, idg_grid_from_records,
                                 idg_records_for_channel)
 from ..ops import (doweight, ifft_centered, make_grid_hermitian, uvw_lambda)
@@ -230,7 +231,7 @@ def _idg_aw_multi_pipeline(screens, uvw, a1, a2, f_ref, ratios, vis_mc, *,
     transposed to pair-major on the device so the prep skips its sort.
     Returns ``(cube [g, n, n], dropped [g] int64)``, each channel's count
     the prep's drops plus its own recheck's."""
-    _check_aw_subgrid(subgrid)
+    _check_subgrid(subgrid)
     n_t, n_grid, theta_g, crop_lo = fov_pad_geometry(theta, lam, fov_pad)
     shape = (n_grid, n_grid)
     uvw1, vis1 = _group_inputs(uvw, f_ref, ratios, vis_mc, theta=theta,

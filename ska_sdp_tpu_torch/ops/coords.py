@@ -2,7 +2,8 @@
 ``ska_sdp_tpu/ops/coords.py``).
 
 ``p`` is the uvw baseline scaled into the ±0.5 box; grid cells are
-``(y, x) = (cell(v), cell(u))``; ``round`` is round-half-to-even.
+``(y, x) = (cell(v), cell(u))``; ``round`` is round-half-to-even, except in
+the nearest-cell gridder's :func:`to_grid_cell`, which rounds half up.
 """
 
 from __future__ import annotations
@@ -20,6 +21,12 @@ def frac_coord(n: int, qpx: int, p: torch.Tensor):
     cell = torch.floor(x + 0.5 / qpx)
     frac = torch.round((x - cell) * qpx)
     return cell.to(torch.int32), frac.to(torch.int32)
+
+
+def to_grid_cell(n: int, f: torch.Tensor) -> torch.Tensor:
+    """Nearest cell of the no-kernel gridder, ``n//2 + floor(0.5 + n·f)``
+    (round half up, unlike :func:`frac_coord`), as int32."""
+    return (n // 2 + torch.floor(0.5 + n * f)).to(torch.int32)
 
 
 def frac_coords(shape_hw, qpx: int, p_uvw: torch.Tensor):

@@ -1,7 +1,8 @@
-"""Bank w-projection scatter, its adjoint gather and the AW-projection
-scatter in plain PyTorch (port of ``convgrid_wproj``, ``degrid_wproj`` and
+"""Nearest-cell, fixed-kernel and bank w-projection scatters, the bank
+gather and the AW-projection scatter in plain PyTorch (port of
+``grid_nearest``, ``convgrid``, ``convgrid_wproj``, ``degrid_wproj`` and
 ``convgrid_aw`` of ``ska_sdp_tpu/ops/gridding.py``, the reference's
-``convgrid2``, its adjoint, and ``convgrid4``).
+``grid``, ``convgrid``, ``convgrid2``, its adjoint, and ``convgrid4``).
 
 Each visibility's tap plane ``K_b = bank[wbin_b, yf_b, xf_b]`` (``[gh, gw]``)
 sits with its top-left corner at ``(y_b − gh//2, x_b − gw//2)``, where
@@ -15,7 +16,9 @@ gather (the reference's ``fixoutofbounds``).  Visibilities go in chunks of
 ``chunk``, so the temporaries stay ``O(chunk · gh · gw)``.  These are the
 plain versions of the CUDA kernels ``csrc/wproj_grid.cu`` and
 ``csrc/wproj_degrid.cu``: the CPU path and the yardstick the kernels are
-checked against.  ``convgrid_aw`` builds each visibility's AW kernel
+checked against.  ``convgrid`` is the bank scatter with a one-plane
+bank; ``grid_nearest`` adds each visibility to one cell.  ``convgrid_aw``
+builds each visibility's AW kernel
 from the A-kernel and w-tap spectra (``ops/convolution.py``) and places
 it the same way; it is the CPU route of ``kernels.aw_gridder``.
 """
@@ -26,7 +29,7 @@ import torch
 
 from .convolution import (akernel_spectra, make_aw_kernels_batched,
                           wkernel_tap_spectra)
-from .coords import frac_coords
+from .coords import frac_coords, to_grid_cell
 
 DEFAULT_CHUNK = 8192
 
@@ -53,6 +56,31 @@ def _placement(bank, shape_hw, p):
     nw, qpx, _, gh, gw = bank.shape
     x, xf, y, yf = frac_coords(shape_hw, qpx, p)
     return y - gh // 2, x - gw // 2, yf, xf, gh, gw
+
+
+def grid_nearest(guv: torch.Tensor, p: torch.Tensor,
+                 vis: torch.Tensor) -> torch.Tensor:
+    """Nearest-cell scatter onto a copy of ``guv`` ``[H, W]``:
+    ``grid[cell(v), cell(u)] += vis`` with :func:`to_grid_cell`'s round-half-
+    up cells; visibilities off the grid are dropped."""
+    H, W = guv.shape
+    y = to_grid_cell(H, p[:, 1]).long()
+    x = to_grid_cell(W, p[:, 0]).long()
+    inb = (y >= 0) & (y < H) & (x >= 0) & (x < W)
+    out = guv.clone()
+    torch.view_as_real(out).view(-1, 2).index_add_(
+        0, torch.where(inb, y * W + x, 0),
+        torch.view_as_real(torch.where(inb, vis, 0).to(out.dtype)))
+    return out
+
+
+def convgrid(gcf: torch.Tensor, guv: torch.Tensor, p: torch.Tensor,
+             vis: torch.Tensor, chunk: int = DEFAULT_CHUNK) -> torch.Tensor:
+    """Scatter through one oversampled kernel ``[qpx, qpx, gh, gw]`` (taken
+    as given): :func:`convgrid_wproj` with the one-plane bank ``gcf[None]``
+    and every record on plane 0."""
+    wbin = torch.zeros((p.shape[0],), dtype=torch.int32, device=p.device)
+    return convgrid_wproj(gcf[None], guv, p, wbin, vis, chunk=chunk)
 
 
 def convgrid_wproj(gcf_bank: torch.Tensor, guv: torch.Tensor,

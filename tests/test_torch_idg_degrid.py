@@ -313,13 +313,15 @@ class TestDegridPieces:
         v = torch.ones((4,), dtype=torch.complex64)
         with pytest.raises(ValueError):
             kernels.idg_degridder((N, N), p, w, g, theta=THETA, subgrid=16)
-        scr = torch.ones((1, 48, 48), dtype=torch.complex64)
-        with pytest.raises(NotImplementedError, match="idg_aw"):
+        # IDG-AW takes every even S up to 128 whose fit margin is
+        # positive; S=26 with support 15 leaves none, as in the reference
+        scr = torch.ones((1, 26, 26), dtype=torch.complex64)
+        with pytest.raises(ValueError, match="subgrid too small"):
             kernels.idg_aw_gridder((N, N), p, z, z, w, v, scr, theta=THETA,
-                                   subgrid=48)
-        with pytest.raises(NotImplementedError, match="idg_aw"):
+                                   subgrid=26)
+        with pytest.raises(ValueError, match="subgrid too small"):
             kernels.idg_aw_degridder((N, N), p, z, z, w, g, scr,
-                                     theta=THETA, subgrid=48)
+                                     theta=THETA, subgrid=26)
         with pytest.raises(ValueError, match="grid_shape"):
             kernels.idg_aw_degridder((N, 128), p, z, z, w, g, scr[:, :32,
                                                                   :32],

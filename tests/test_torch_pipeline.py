@@ -133,7 +133,7 @@ class TestCLI:
         assert got.dtype == np.float64
         assert _rel(got, want) < 1e-4
 
-    @pytest.mark.parametrize("argv", [["--mode", "conv"],
+    @pytest.mark.parametrize("argv", [["--metrics", "m.jsonl"],
                                       ["--gridder", "xla"],
                                       ["--distributed"],
                                       ["--device-phases"]])

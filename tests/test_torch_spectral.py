@@ -538,7 +538,7 @@ class TestCLI:
                 "--idg") in capsys.readouterr().err
 
     @pytest.mark.parametrize("argv", [
-        ["--backend", "tpu"], ["--gridder", "xla"], ["--wstep", "100"],
+        ["--backend", "tpu"], ["--gridder", "xla"], ["--distributed"],
         ["--metrics", "m.jsonl"], ["--xla-dump", "dump"],
         ["--slab", "100"]])
     def test_reference_flags_refused(self, argv, capsys):

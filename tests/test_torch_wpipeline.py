@@ -250,9 +250,9 @@ class TestCLI:
         ["--mode", "w", "--out-of-core"],
         ["--mode", "w", "--dump-intermediates", "dump.h5"],
         ["--mode", "w", "--device-phases"],
-        ["--mode", "wcache"],
-        ["--mode", "conv"],
-        ["--mode", "simple"],
+        ["--mode", "wcache", "--device-phases"],
+        ["--mode", "conv", "--xla-dump", "dump"],
+        ["--mode", "simple", "--slab", "100"],
     ])
     def test_unported_surfaces_exit_2(self, argv, capsys):
         assert cli.main(argv) == 2
