@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Chip smoke test of ska_sdp_tpu_torch: the ported imaging, prediction and
-spectral-cube paths and the PSF-normalised imaging end to end on one NVIDIA
-GPU, through the hand-written CUDA kernels (the streamed IDG gridder and
+spectral-cube paths, the PSF-normalised imaging, and the staged,
+checkpointed and streamed run surfaces end to end on one NVIDIA GPU,
+through the hand-written CUDA kernels (the streamed IDG gridder and
 degridder, which also serve the fixed-tile IDG route and IDG-AW at every
 even subgrid, the bank w-projection scatter, which also serves ``--mode
-conv`` and ``wcache``, and gather, the fused AW gridder).
+conv`` and ``wcache`` and every slab of a checkpointed or streamed run,
+and gather, the fused AW gridder).
 
     python3 chip_smoke.py
 
@@ -201,7 +203,33 @@ result line):
     within 5e-5 of the plain scatter on its inputs, and the image and PSF
     within 1e-4 of the same entry on the plain scatter; the bank's plane
     count, the scatter's time on the image launch's records beside its
-    plain version and its bound, and each mode's time end to end.
+    plain version and its bound, and each mode's time end to end;
+28. the staged drivers of ``--device-phases`` in memory on phase 4's
+    observation (``_wproj_staged`` and ``_aw_fused_staged`` with phase
+    13's bank and phase 17's A-kernels, ``_aw_idg_staged`` at S=64 with
+    the 512 stations' near-delta screens), each with the launch counts
+    reset just before: every stage's time beside the dispatch floor, at
+    least one launch of the stage's kernel, the image within 1e-5 rel-L2
+    of the unstaged entry on the card (IDG-AW over the central 75%, with
+    equal ``n_dropped``), and the kernel's last launch against its plain
+    version on the same inputs (≤ 5e-5), both timed, with its bound;
+29. the checkpointed slab loop (``w_image_slabs``) in slabs of 262,144
+    (4 slabs), stopped after 2 and resumed from the host copy its
+    callback made: 4 scatter launches, the image within 1e-5 of
+    ``w_image``; each slab's scatter time, each host copy's time and
+    bytes (into ``HostCopy``'s page-locked buffer, as the checkpoint
+    writer copies); a slab's scatter (onto the running grid) against the
+    plain scatter; the grid's page-locked and pageable copies; the loop's
+    time with a host copy a slab at 4 slabs (and with pageable copies)
+    and at the default slab (one) against ``w_image``'s;
+30. the streamed two-pass loop (``w_image_streamed``) over numpy readers
+    of the same observation in slabs of 262,144: the pass-1 histogram on
+    the card equal to a float64 numpy histogram integer for integer, 4
+    scatter launches, the image within 1e-5 of the same loop on the plain
+    scatter on the card; printed without a bound, its rel-L2 against
+    ``w_image`` (other weights); a slab's scatter against the plain
+    scatter; the histogram pass's, the loop's and the prefetch wait's
+    times.
 
 The line before last is the ``nvidia-smi`` name and power limit, the one
 before it a JSON summary of the kernels (``replaces`` lists each TPU
@@ -244,6 +272,8 @@ TRUTH_TOL = 2e-4         # predict vs direct DFT (the reference's IDG bound)
 TRUTH_TOL_S32 = 3e-4     # the same at S=32 (the reference's S=32 bound)
 C = 299792458.0
 REPS = 7
+SLAB = 262_144           # phases 29-30: 4 slabs of the main path
+STAGED_TOL = 1e-5        # staged and slab-wise images against one-shot
 
 
 def smi() -> str:
@@ -847,6 +877,7 @@ def main() -> int:
     spectral_phases(torch, dev, card, mid)
     aw48 = aw48_phases(torch, dev, card, vd, obs, img, model)
     psf = psf_phases(torch, dev, card, vd, obs)
+    runs = run_surface_phases(torch, dev, card, vd, obs)
 
     print(json.dumps({"kernels": [{
         "name": stream.GRID_KERNEL,
@@ -870,7 +901,7 @@ def main() -> int:
                     "ska_sdp_tpu/kernels/idg_aw_stream_pallas.py:1014, "
                     "ska_sdp_tpu/kernels/idg_aw_degrid_pallas.py:82",
         **degrid,
-    }, *wproj, aw, *tile, *aw48, *psf]}))
+    }, *wproj, aw, *tile, *aw48, *psf, *runs]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
@@ -2601,6 +2632,403 @@ def psf_phases(torch, dev, card, vd, obs):
         t = timed_ms(torch, lambda: ds.psf_image(vd, mode, **kw))
         print(f"time do_imaging --mode {mode} end to end (image + PSF): "
               f"{t:.3f} ms = {n_vis / t / 1e3:.2f} M vis/s [{card}]")
+    return entries
+
+
+@contextlib.contextmanager
+def spy(mod, attr, calls):
+    """Record ``(args, kwargs, result)`` of every call of ``mod.attr``."""
+    real = getattr(mod, attr)
+
+    def wrapper(*args, **kwargs):
+        out = real(*args, **kwargs)
+        calls.append((args, kwargs, out))
+        return out
+
+    setattr(mod, attr, wrapper)
+    try:
+        yield
+    finally:
+        setattr(mod, attr, real)
+
+
+def wall_ms(torch, fn, reps=5):
+    """Median host-clock milliseconds of ``fn()`` ended by a synchronise
+    (one warm-up run): for loops that wait on the host."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def scatter_entry(torch, card, label, call, launches):
+    """The ``kernels`` entry of one recorded bank scatter call (``args``
+    of ``wproj_gridder``, its ``init`` included): the kernel against the
+    plain scatter on the same inputs, both timed, and the bound (8 flop
+    per in-bounds tap; inputs, ``init`` included, read once and the grid
+    written once)."""
+    from ska_sdp_tpu_torch.kernels import wproj
+    from ska_sdp_tpu_torch.ops.gridding import convgrid_wproj
+
+    (bank, shape, p, wbin, vis), kw, out = call
+    init = kw.get("init")
+
+    def plain():
+        g0 = (torch.zeros(shape, dtype=torch.complex64, device=vis.device)
+              if init is None else init)
+        return convgrid_wproj(bank, g0, p, wbin, vis, chunk=8192)
+
+    ref = plain()
+    on, rn = out.cpu().numpy(), ref.cpu().numpy()
+    err, max_abs = rel_l2(on, rn), float(np.abs(on - rn).max())
+    if not err <= KERNEL_TOL:
+        raise AssertionError(f"{label} scatter parity failed: {err}")
+    t_k = timed_ms(torch, lambda: wproj.wproj_gridder(bank, shape, p, wbin,
+                                                      vis, init=init))
+    t_p = timed_ms(torch, plain)
+    nw, qpx, _, gh, gw = bank.shape
+    y0, x0, _, valid = wproj.wproj_records(shape, qpx, gh, gw,
+                                           nw * qpx * qpx, p, wbin)
+    rows = torch.clamp(y0 + gh, max=shape[0]) - torch.clamp(y0, min=0)
+    cols = torch.clamp(x0 + gw, max=shape[1]) - torch.clamp(x0, min=0)
+    taps = int((rows.clamp(min=0) * cols.clamp(min=0))[valid].sum())
+    io = nbytes(bank, p, wbin, vis) + shape[0] * shape[1] * 8 * (
+        1 if init is None else 2)
+    b_ms, b_by = bound(8 * taps, io)
+    onto = "" if init is None else ", onto a grid"
+    print(f"  {label} scatter ({p.shape[0]} records{onto}): "
+          f"kernel vs plain rel-L2 {err:.3e} (bound {KERNEL_TOL}); kernel "
+          f"{t_k:.3f} ms, plain {t_p:.3f} ms, bound {b_ms:.4f} ms ({b_by}; "
+          f"{taps} in-bounds taps) [{card}]")
+    return {"name": f"{wproj.GRID_KERNEL} ({label})", "route": "cuda",
+            "source": "ska_sdp_tpu_torch/csrc/wproj_grid.cu",
+            "replaces": "ska_sdp_tpu/kernels/wproj_resident_pallas.py:76, "
+                        "ska_sdp_tpu/kernels/wproj_pallas.py:77",
+            "launches": launches, "max_abs_err": max_abs, "ms": t_k,
+            "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None}
+
+
+def run_surface_phases(torch, dev, card, vd, obs):
+    """Phases 28-30: the staged drivers, the checkpointed slab loop and the
+    streamed two-pass loop on the main path's observation ``vd``/``obs``,
+    in memory (the card's machine has no h5py).  Returns the entries of the
+    ``kernels`` line of the kernels they launch."""
+    from ska_sdp_tpu_torch.kernels import aw_fused, wproj
+    from ska_sdp_tpu_torch.kernels import idg_aw_stream as stream
+    from ska_sdp_tpu_torch.models import dataset as ds
+    from ska_sdp_tpu_torch.ops.gridding import convgrid_wproj
+    from ska_sdp_tpu_torch.types import SINGLE
+    from ska_sdp_tpu_torch.utils.timing import PhaseTimer
+
+    n_vis = vd.vis.shape[0]
+    n_grid = int(round(THETA * LAM))
+    centers, build_bank = w_bank_inputs(torch, obs, dev)
+    bank = build_bank()
+    ak = main_akerns()
+    kw = dict(theta=THETA, lam=LAM, device=dev)
+    entries = []
+
+    # ---- 28. the staged drivers (--device-phases) --------------------------
+    uvw, f, vis = ds.idg_inputs(vd, device=dev)
+    bank64 = bank.to(torch.complex64)
+    bank_c = torch.conj(bank64).resolve_conj()
+    cent32 = torch.as_tensor(centers, dtype=torch.float32, device=dev)
+    a1, a2 = (torch.as_tensor(a.astype(np.int32), device=dev)
+              for a in (vd.antenna1, vd.antenna2))
+    ak64 = torch.as_tensor(ak, dtype=torch.complex64, device=dev)
+    scr = ds._aw_screens(ak, SUBGRID, THETA, LAM, None, SINGLE, dev)
+    mr = ds._aw_run_bound(vd.antenna1, vd.antenna2, n_vis)
+    one_shot = {
+        "w": lambda: ds.w_image(vd, bank, centers, **kw),
+        "aw": lambda: ds.aw_image(vd, bank, centers, ak, **kw),
+        "aw_idg": lambda: ds.aw_idg_image(vd, ak, subgrid=SUBGRID,
+                                          taper_beta=BETA, **kw)}
+    staged = {
+        "w": (ds, "wproj_gridder", wproj, wproj.GRID_KERNEL, "scatter",
+              lambda t: ds._wproj_staged(bank_c, cent32, uvw, f, vis,
+                                         theta=THETA, lam=LAM, chunk=8192,
+                                         timer=t)),
+        "aw": (aw_fused, "aw_fused_grid", aw_fused, aw_fused.GRID_KERNEL,
+               "aw-fused-kernel",
+               lambda t: ds._aw_fused_staged(bank64, cent32, ak64, uvw, a1,
+                                             a2, f, vis, theta=THETA,
+                                             lam=LAM, chunk=8192, timer=t)),
+        "aw_idg": (ds, "idg_aw_grid_from_records_stream", stream,
+                   stream.GRID_KERNEL, "idg-aw-kernel",
+                   lambda t: ds._aw_idg_staged(
+                       scr, uvw, a1, a2, f, vis, theta=THETA, lam=LAM,
+                       subgrid=SUBGRID, taper_beta=BETA, max_runs=mr,
+                       timer=t))}
+    captured = {}
+    for kind, (mod, attr, counter, kname, stage, run) in staged.items():
+        ref = one_shot[kind]()
+        torch.cuda.synchronize()
+        calls = []
+        timer = PhaseTimer(enabled=True)
+        print(f"staged {kind} (in memory, {n_vis} vis; each stage a warm-up "
+              f"and a timed call) [{card}]:")
+        counter.reset_launch_count()
+        with spy(mod, attr, calls):
+            out = run(timer)
+            torch.cuda.synchronize()
+        launches = counter.launch_count(kname)
+        img, img_r = out[0].cpu().numpy(), ref[0].cpu().numpy()
+        nd, region = "", ""
+        if kind == "aw_idg":
+            # IDG's image contract holds over the central 75%: outside it
+            # the taper division amplifies the rounding of sums taken in
+            # another order (the staged prep sorts, the entry does not)
+            nd = (f"; n_dropped staged {out[2]}, unstaged {ref[2]}; full "
+                  f"image (no bound) {rel_l2(img, img_r):.3e}")
+            img, img_r, region = crop75(img), crop75(img_r), " (central 75%)"
+        err = rel_l2(img, img_r)
+        print(f"  vs the unstaged entry: rel-L2 {err:.3e}{region} (bound "
+              f"{STAGED_TOL}); {kname} launches {launches} (warm-up and "
+              f"timed {stage}){nd}")
+        if not np.isfinite(img).all():
+            raise AssertionError(f"staged {kind}: non-finite image")
+        if launches < 1 or len(calls) != 2:
+            raise AssertionError(f"staged {kind}: {launches} launches")
+        if not err <= STAGED_TOL:
+            raise AssertionError(f"staged {kind} image parity: {err}")
+        if kind == "aw_idg" and out[2] != ref[2]:
+            raise AssertionError(f"staged IDG-AW dropped {out[2]}, the "
+                                 f"entry {ref[2]}")
+        captured[kind] = (calls[-1], launches)
+
+    call, launches = captured["w"]
+    entries.append(scatter_entry(torch, card, "staged w", call, launches))
+    (pt, ws, rec, vis_r, shape), akw, out = captured["aw"][0]
+    ref = aw_fused.aw_fused_plain(pt, ws, rec, vis_r, shape)
+    on, rn = out.cpu().numpy(), ref.cpu().numpy()
+    err, max_abs = rel_l2(on, rn), float(np.abs(on - rn).max())
+    if not err <= KERNEL_TOL:
+        raise AssertionError(f"staged aw kernel parity failed: {err}")
+    t_k = timed_ms(torch, lambda: aw_fused.aw_fused_grid(pt, ws, rec, vis_r,
+                                                         shape))
+    t_p = timed_ms(torch, lambda: aw_fused.aw_fused_plain(pt, ws, rec, vis_r,
+                                                          shape))
+    s, m = 15, pt.shape[-1]
+    per_rec = min(8 * (m * m * s + s * s * m),
+                  (m + s) * 5 * m * int(math.log2(m))) + 6 * m * m + 6 * s * s
+    b_ms, b_by = bound(int(rec.valid.sum()) * per_rec,
+                       nbytes(pt, ws, rec.y0, rec.x0, rec.pid, rec.kidx,
+                              vis_r) + shape[0] * shape[1] * 8)
+    print(f"  staged aw kernel: vs plain rel-L2 {err:.3e} (bound "
+          f"{KERNEL_TOL}); kernel {t_k:.3f} ms, plain {t_p:.3f} ms, bound "
+          f"{b_ms:.3f} ms ({b_by}) [{card}]")
+    entries.append({
+        "name": f"{aw_fused.GRID_KERNEL} (staged aw)", "route": "cuda",
+        "source": "ska_sdp_tpu_torch/csrc/aw_grid.cu",
+        "replaces": "ska_sdp_tpu/kernels/aw_fused_resident_pallas.py:95",
+        "launches": captured["aw"][1], "max_abs_err": max_abs, "ms": t_k,
+        "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None})
+    args, gkw, out = captured["aw_idg"][0]
+    recs, shape, scr_k = args[:7], args[7], args[8]
+    S = SUBGRID
+
+    def plain_idg():
+        return stream.grid_from_records_plain(
+            *recs, scr_k, grid_shape=shape, **gkw)[S:S + shape[0],
+                                                  S:S + shape[1]]
+
+    on, rn = out.cpu().numpy(), plain_idg().cpu().numpy()
+    err, max_abs = rel_l2(on, rn), float(np.abs(on - rn).max())
+    if not err <= KERNEL_TOL:
+        raise AssertionError(f"staged aw_idg kernel parity failed: {err}")
+    t_k = timed_ms(torch, lambda: stream.idg_aw_grid_from_records_stream(
+        *recs, shape, scr_k, **gkw))
+    t_p = timed_ms(torch, plain_idg, reps=3)
+    n_runs, longest, mean = run_stats(recs[1], recs[2])
+    io = nbytes(*recs, scr_k) + (shape[0] + 2 * S) ** 2 * 8
+    _, (b_ms, b_by, t_tc, t_cuda) = idg_stream_bounds(S, n_vis, n_runs, io)
+    print(f"  staged aw_idg kernel (S={S}, {n_runs} runs, longest {longest}, "
+          f"mean {mean:.2f}): vs plain rel-L2 {err:.3e} (bound "
+          f"{KERNEL_TOL}); kernel {t_k:.3f} ms, plain {t_p:.3f} ms, "
+          f"tensor-core bound {b_ms:.3f} ms ({b_by}) [{card}]")
+    entries.append({
+        "name": f"{stream.GRID_KERNEL} (staged aw_idg S={S})",
+        "route": "cuda", "source": "ska_sdp_tpu_torch/csrc/idg_grid.cu",
+        "replaces": "ska_sdp_tpu/kernels/idg_aw_stream_pallas.py:161, "
+                    "ska_sdp_tpu/kernels/idg_aw_pallas.py:360",
+        "launches": captured["aw_idg"][1], "max_abs_err": max_abs,
+        "ms": t_k, "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None})
+    del captured
+
+    # ---- 29. the checkpointed slab loop -------------------------------------
+    img_w = one_shot["w"]().image.cpu().numpy()
+    slab_ms, copies = [], []
+
+    def timed_scatter(calls):
+        """``wproj_gridder`` timed by CUDA events around each call."""
+        real = ds.wproj_gridder
+
+        def wrapper(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = real(*args, **kwargs)
+            stop.record()
+            slab_ms.append((start, stop))
+            calls.append((args, kwargs, out))
+            return out
+
+        return wrapper
+
+    copy = ds.HostCopy()        # what the checkpoint writer copies with
+
+    def to_host(grid, nxt):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g = copy(grid)
+        copies.append(((time.perf_counter() - t0) * 1e3, g.nbytes, nxt, g))
+
+    calls = []
+    n_slabs = -(-n_vis // SLAB)
+    real_scatter = ds.wproj_gridder
+    wproj.reset_launch_count()
+    ds.wproj_gridder = timed_scatter(calls)
+    try:
+        t0 = time.perf_counter()
+        first = ds.w_image_slabs(vd, bank, centers, slab=SLAB, max_slabs=2,
+                                 on_slab=to_host, **kw)
+        _, _, start, grid = copies[-1]
+        res = ds.w_image_slabs(vd, bank, centers, slab=SLAB, start=start,
+                               grid=grid, on_slab=to_host, **kw)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        ds.wproj_gridder = real_scatter
+    launches = wproj.launch_count(wproj.GRID_KERNEL)
+    img = res.image.cpu().numpy()
+    err = rel_l2(img, img_w)
+    print(f"checkpointed main path: w_image_slabs of {n_vis} vis in slabs "
+          f"of {SLAB}, stopped after 2 (next {start}) and resumed from the "
+          f"host copy: scatter launches {launches} (expected {n_slabs}); "
+          f"image vs "
+          f"w_image rel-L2 {err:.3e} (bound {STAGED_TOL}); both calls "
+          f"{wall:.3f} ms [{card}]")
+    if first is not None or start != 2 * SLAB:
+        raise AssertionError("the slab loop did not stop after 2 slabs")
+    if launches != n_slabs or not np.isfinite(img).all():
+        raise AssertionError(f"checkpointed run: {launches} launches")
+    if not err <= STAGED_TOL:
+        raise AssertionError(f"checkpointed image parity failed: {err}")
+    for i, ((a, b), (c_ms, c_bytes, nxt, _)) in enumerate(zip(slab_ms,
+                                                              copies)):
+        print(f"  slab {i}: scatter {a.elapsed_time(b):.3f} ms (CUDA "
+              f"events, the grid's copy into the output included), host "
+              f"copy (page-locked) {c_ms:.3f} ms of {c_bytes} bytes "
+              f"({c_bytes / c_ms / 1e6:.2f} GB/s), next {nxt}")
+    copies.clear()
+    entries.append(scatter_entry(torch, card, "checkpointed slab",
+                                 calls[1], launches))
+    final = calls[-1][2]
+    t_pin = wall_ms(torch, lambda: copy(final))
+    t_page = wall_ms(torch, lambda: final.cpu())
+    nb = final.numel() * final.element_size()
+    print(f"time host copy of the {nb}-byte grid: page-locked buffer "
+          f"(HostCopy) {t_pin:.3f} ms ({nb / t_pin / 1e6:.2f} GB/s), "
+          f"pageable (grid.cpu()) {t_page:.3f} ms "
+          f"({nb / t_page / 1e6:.2f} GB/s) [{card}]")
+
+    def keep(grid, nxt):
+        copy(grid)
+
+    def keep_pageable(grid, nxt):
+        grid.cpu()
+
+    t_w = wall_ms(torch, one_shot["w"])
+    t_4 = wall_ms(torch, lambda: ds.w_image_slabs(
+        vd, bank, centers, slab=SLAB, on_slab=keep, **kw))
+    t_4p = wall_ms(torch, lambda: ds.w_image_slabs(
+        vd, bank, centers, slab=SLAB, on_slab=keep_pageable, **kw))
+    t_1 = wall_ms(torch, lambda: ds.w_image_slabs(
+        vd, bank, centers, slab=1 << 20, on_slab=keep, **kw))
+    print(f"time w_image {t_w:.3f} ms; w_image_slabs with a host copy a "
+          f"slab: 4 slabs of {SLAB} {t_4:.3f} ms (pageable copies "
+          f"{t_4p:.3f} ms), the default slab {1 << 20} (one slab) "
+          f"{t_1:.3f} ms [{card}]")
+
+    # ---- 30. the streamed two-pass loop -------------------------------------
+    readers = {"uvw": lambda s0, c: vd.uvw[s0:s0 + c],
+               "vis": lambda s0, c: vd.vis[s0:s0 + c]}
+    counts = ds.stream_weight_counts(readers["uvw"], n_vis, vd.frequency,
+                                     theta=THETA, lam=LAM, slab=SLAB,
+                                     device=dev)
+    uvw_l = vd.uvw * (vd.frequency / C) / LAM
+    cell = np.floor(n_grid // 2 + uvw_l[:, :2] * n_grid + 0.5).astype(
+        np.int64)
+    flat = cell[:, 1] * n_grid + cell[:, 0]
+    want = np.bincount(flat[(flat >= 0) & (flat < n_grid ** 2)],
+                       minlength=n_grid ** 2)
+    occupied = int((want > 0).sum())
+    want[want == 0] = 1
+    same = np.array_equal(counts.cpu().numpy(), want)
+    print(f"out-of-core weights: pass-1 histogram of {n_vis} records on the "
+          f"card equals the float64 numpy histogram: {same} (occupied cells "
+          f"{occupied}, max count {int(want.max())})")
+    if not same:
+        raise AssertionError("the streamed histogram differs from numpy's")
+    timer = PhaseTimer()
+    calls = []
+    wproj.reset_launch_count()
+    with spy(ds, "wproj_gridder", calls):
+        res = ds.w_image_streamed(readers, n_vis, vd.frequency, bank,
+                                  centers, slab=SLAB, timer=timer, **kw)
+        torch.cuda.synchronize()
+    launches = wproj.launch_count(wproj.GRID_KERNEL)
+    img = res.image.cpu().numpy()
+
+    def plain_scatter(bank, shape, p, wbin, vis, chunk, init):
+        return convgrid_wproj(bank, init, p, wbin, vis, chunk=chunk)
+
+    ds.wproj_gridder = plain_scatter
+    try:
+        ref = ds.w_image_streamed(readers, n_vis, vd.frequency, bank,
+                                  centers, slab=SLAB, **kw)
+    finally:
+        ds.wproj_gridder = real_scatter
+    err = rel_l2(img, ref.image.cpu().numpy())
+    print(f"out-of-core main path: w_image_streamed of {n_vis} vis in slabs "
+          f"of {SLAB}: scatter launches {launches} (expected {n_slabs}); "
+          f"image vs "
+          f"the same loop on the plain scatter rel-L2 {err:.3e} (bound "
+          f"{STAGED_TOL}); vs w_image (no bound: the streamed weights) "
+          f"{rel_l2(img, img_w):.3e}; histogram pass "
+          f"{timer.times['weight/histogram'] * 1e3:.3f} ms, prefetch wait "
+          f"{timer.times['stream/prefetch-wait'] * 1e3:.3f} ms over both "
+          f"passes [{card}]")
+    if launches != n_slabs or not np.isfinite(img).all():
+        raise AssertionError(f"streamed run: {launches} launches")
+    if not err <= STAGED_TOL:
+        raise AssertionError(f"streamed image parity failed: {err}")
+    entries.append(scatter_entry(torch, card, "out-of-core slab", calls[1],
+                                 launches))
+    t_h = wall_ms(torch, lambda: ds.stream_weight_counts(
+        readers["uvw"], n_vis, vd.frequency, theta=THETA, lam=LAM, slab=SLAB,
+        device=dev))
+    waits = []
+
+    def streamed():
+        t = PhaseTimer()
+        ds.w_image_streamed(readers, n_vis, vd.frequency, bank, centers,
+                            slab=SLAB, timer=t, on_slab=keep, **kw)
+        waits.append(t.times["stream/prefetch-wait"] * 1e3)
+
+    t_s = wall_ms(torch, streamed)
+    print(f"time out-of-core: histogram pass {t_h:.3f} ms; w_image_streamed "
+          f"with a host copy a slab {t_s:.3f} ms (prefetch wait median "
+          f"{statistics.median(waits):.3f} ms); w_image {t_w:.3f} ms "
+          f"[{card}]")
     return entries
 
 

@@ -16,7 +16,11 @@ spectral cubes of ``chip_smoke.py`` phase 24: ``idg_cube`` (S=64) and
 8-channel track raster; ``aw_idg_image`` and ``aw_predict_vis`` at S=48 on
 the 512-station observation with its near-delta A-kernels; and the
 PSF-normalised imaging ``psf_image`` of ``--mode simple``, ``conv`` and
-``wcache`` on the 512-station observation), each entry is called ``--warmup`` times, then
+``wcache`` on the 512-station observation; the slab loops of ``--mode w
+--checkpoint`` (``w_image_slabs``) and ``--out-of-core``
+(``w_image_streamed``, both passes) on the 512-station observation in 4
+slabs of 262,144 records, the grid copied after each slab into the
+page-locked host buffer a checkpoint write copies into), each entry is called ``--warmup`` times, then
 ``--calls`` times without the profiler and ``--calls`` times under it,
 each call ending in a synchronise.  Per entry it prints one JSON line: the
 wall time per call with the profiler off and on (host clock), the device
@@ -75,7 +79,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("error: no CUDA device visible", file=sys.stderr)
         return 1
-    from chip_smoke import (BETA, LAM, SUBGRID, THETA, aw_cube_inputs,
+    from chip_smoke import (BETA, LAM, SLAB, SUBGRID, THETA, aw_cube_inputs,
                             aw_track_inputs, cube_akerns, cube_observation,
                             main_akerns, main_observation, smi,
                             snapped_model, w_bank_inputs)
@@ -99,6 +103,15 @@ def main() -> int:
     vd_aw_c, ak_c = aw_cube_inputs(), cube_akerns()
 
     kw = dict(theta=THETA, lam=LAM, device=dev)
+    n_vis = vd.vis.shape[0]
+    readers = {"uvw": lambda s0, c: vd.uvw[s0:s0 + c],
+               "vis": lambda s0, c: vd.vis[s0:s0 + c]}
+
+    host = ds.HostCopy()
+
+    def to_host(grid, _next):
+        host(grid)
+
     idg = dict(kw, subgrid=SUBGRID, taper_beta=BETA)
     idg32 = dict(idg, subgrid=32)
     aw48 = dict(idg, subgrid=48)
@@ -123,6 +136,11 @@ def main() -> int:
         "psf_image simple": lambda: ds.psf_image(vd, "simple", **kw),
         "psf_image conv": lambda: ds.psf_image(vd, "conv", **kw),
         "psf_image wcache": lambda: ds.psf_image(vd, "wcache", **kw),
+        "w_image_slabs (4 slabs)": lambda: ds.w_image_slabs(
+            vd, bank, centers, slab=SLAB, on_slab=to_host, **kw),
+        "w_image_streamed (4 slabs)": lambda: ds.w_image_streamed(
+            readers, n_vis, vd.frequency, bank, centers, slab=SLAB,
+            on_slab=to_host, **kw),
     }
     for name, fn in entries.items():
         bare, wall, items = profile(torch, fn, args.calls, args.warmup)

@@ -22,16 +22,22 @@ Examples:
     python -m ska_sdp_tpu_torch.cli --make-data data/ --nchan 4
     python -m ska_sdp_tpu_torch.cli --mode idg --channels 4 -i data/ --all \
         -o cube.h5                     # also --mode w, --mode aw --idg
+    python -m ska_sdp_tpu_torch.cli --mode w -i data/ --all \
+        --checkpoint run.ckpt --slab 100 [--out-of-core]
+    python -m ska_sdp_tpu_torch.cli --mode aw --idg --device-phases \
+        -i data/ --all                 # also --mode w, --mode aw
+    python -m ska_sdp_tpu_torch.cli --mode w -i data/ --all \
+        --dump-intermediates dbg.h5 --metrics m.jsonl
 
 Every flag of the reference parses, and every mode runs.  Flags that are
-not ported yet exit with status 2 and a "not yet ported" message;
+not ported yet (``--distributed``, ``--gridder``, ``--xla-dump``,
+``--backend tpu``) exit with status 2 and a "not yet ported" message;
 ``--backend cpu`` is ``--device cpu``.
 """
 
 from __future__ import annotations
 
 import argparse
-import contextlib
 import os
 import sys
 import time
@@ -103,23 +109,28 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--wstep", type=float, default=2000.0,
                    help="w-bin width for --mode wcache (ref default 2000)")
     p.add_argument("--metrics", default=None,
-                   help="JSON-lines metrics file (not yet ported)")
+                   help="append structured JSON-lines metrics to this file "
+                        "(run/start, and run/done with the phases and "
+                        "counters)")
     p.add_argument("--xla-dump", default=None, metavar="DIR",
                    help="the reference's compiler dumps (not ported)")
-    p.add_argument("--slab", type=int, default=None,
-                   help="visibilities per checkpoint slab (not yet ported)")
+    p.add_argument("--slab", type=int, default=1 << 20,
+                   help="visibilities per checkpoint slab (one bank scatter "
+                        "launch and one checkpoint write each)")
     p.add_argument("--distributed", action="store_true",
                    help="multi-device imaging (not yet ported)")
     p.add_argument("--device-phases", action="store_true",
-                   help="--mode idg: run the pipeline as separately "
-                        "synchronised stages and print each stage's time "
-                        "(other modes: not yet ported)")
+                   help="run the pipeline as separately synchronised stages "
+                        "and print each stage's device time (modes w, idg, "
+                        "aw and aw --idg); implies -dphases")
     p.add_argument("--dump-intermediates", metavar="FILE", default=None,
-                   help="--mode w debug dumps (not yet ported)")
+                   help="write the pipeline intermediates (uv-grid planes, "
+                        "w-planes, image) to FILE's /debug tree (--mode w)")
     p.add_argument("--checkpoint", default=None,
-                   help="resumable --mode w run (not yet ported)")
+                   help="resumable run: checkpoint .h5 path (--mode w)")
     p.add_argument("--out-of-core", action="store_true",
-                   help="streamed --mode w run (not yet ported)")
+                   help="stream visibility slabs from disk with background "
+                        "prefetch (requires --checkpoint; --mode w)")
     p.add_argument("--idg", action="store_true",
                    help="use the IDG realization for --mode predict "
                         "(continuous-w degridding) or --mode aw (IDG-AW: "
@@ -147,6 +158,19 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _all_counters(timer) -> dict:
+    """The timer's counters and the records each gridder dropped, under
+    ``dropped/<gridder>``.  The reference also reports its Pallas→XLA
+    downgrades as ``fallback/*``; the port has no such fallback (a kernel
+    that fails to build or launch raises), so it has no such keys."""
+    from . import kernels
+
+    out = dict(timer.counters)
+    for k, v in kernels.drop_counters().items():
+        out[f"dropped/{k}"] = float(v)
+    return out
+
+
 def _not_ported(what: str) -> int:
     print(f"error: {what} is not yet ported to ska_sdp_tpu_torch "
           "(use ska_sdp_tpu)", file=sys.stderr)
@@ -169,17 +193,14 @@ def main(argv=None) -> int:
 
     for flag, on in (("--backend tpu", args.backend == "tpu"),
                      ("--gridder", args.gridder),
-                     ("--metrics", args.metrics),
                      ("--xla-dump", args.xla_dump),
-                     ("--slab", args.slab is not None),
-                     ("--distributed", args.distributed),
-                     ("--device-phases",
-                      args.device_phases and args.mode != "idg"),
-                     ("--dump-intermediates", args.dump_intermediates),
-                     ("--checkpoint", args.checkpoint),
-                     ("--out-of-core", args.out_of_core)):
+                     ("--distributed", args.distributed)):
         if on:
             return _not_ported(flag)
+    from .utils.metrics import MetricsSink
+
+    metrics = MetricsSink(args.metrics)
+    metrics.emit("run/start", mode=args.mode, n=args.n, all=args.all)
     multichannel = args.channels is not None and args.channels > 1
     if args.aterms and not (args.mode == "predict" and args.idg):
         print("error: --aterms requires --mode predict --idg",
@@ -230,74 +251,83 @@ def main(argv=None) -> int:
     # None (not False) keeps the SKA_SDP_TPU_DUMP_PHASES fallback
     timer = PhaseTimer(enabled=(args.dump_phases or args.device_phases)
                        or None, trace_dir=args.trace_dir)
-
-    def traced(name):
-        """A whole-run phase, so --trace-dir traces the file entries that take
-        no timer of their own."""
-        return (timer.phase(name) if timer.trace_dir
-                else contextlib.nullcontext())
+    common["timer"] = timer
+    done = {}                   # the run/done event's result fields
+    if args.mode == "w" and not multichannel:
+        if args.checkpoint and (args.device_phases
+                                or args.dump_intermediates):
+            print("warning: --device-phases/--dump-intermediates are not "
+                  "supported on the checkpointed/out-of-core paths "
+                  "(ignored)", file=sys.stderr)
+        if args.out_of_core and not args.checkpoint:
+            print("error: --out-of-core requires --checkpoint",
+                  file=sys.stderr)
+            return 1
 
     try:
         if multichannel:
-            mc = dict(common, timer=timer)
             if args.mode == "idg":
                 phase = "idg_gridding_multi"
                 mx, _, cube = spectral.idg_gridding_multi(
-                    vis_path, args.channels, **mc, **idg_opts)
+                    vis_path, args.channels, **common, **idg_opts)
             elif args.mode == "aw":
                 phase = "aw_idg_gridding_multi"
                 mx, _, cube = spectral.aw_idg_gridding_multi(
-                    akern_path, vis_path, args.channels, **mc, **idg_opts)
+                    akern_path, vis_path, args.channels, **common,
+                    **idg_opts)
             else:
                 phase = "w_gridding_multi"
                 mx, _, cube = spectral.w_gridding_multi(
-                    wkern_path, vis_path, args.channels, **mc)
+                    wkern_path, vis_path, args.channels, **common)
             result = (f"imaged {cube.shape[0]} channels, continuum image "
                       f"max: {mx}")
+            done = dict(image_max=mx, channels=int(cube.shape[0]))
         elif args.mode == "predict":
             if w_bank:
                 phase = "w_predict"
-                with traced(phase):
-                    pred, peak = ds.w_predict(wkern_path, vis_path,
-                                              args.model, **common)
+                pred, peak = ds.w_predict(wkern_path, vis_path, args.model,
+                                          **common)
             elif args.aterms:
                 phase = "aw_predict"
-                with traced(phase):
-                    pred, peak = ds.aw_predict(akern_path, vis_path,
-                                               args.model, **common,
-                                               **idg_opts)
+                pred, peak = ds.aw_predict(akern_path, vis_path, args.model,
+                                           **common, **idg_opts)
             else:
                 phase = "idg_predict"
-                with traced(phase):
-                    pred, peak = ds.idg_predict(vis_path, args.model,
-                                                **common, **idg_opts)
+                pred, peak = ds.idg_predict(vis_path, args.model, **common,
+                                            **idg_opts)
             result = (f"predicted {pred.shape[0]} visibilities, peak "
                       f"|vis|: {peak}")
-        elif args.mode in PSF_MODES:
-            phase = "psf_gridding"
-            with traced(phase):
+            done = dict(peak_vis=peak)
+        else:
+            if args.mode in PSF_MODES:
+                phase = "psf_gridding"
                 mx, _ = ds.psf_gridding(args.mode, vis_path, **common,
-                                           wstep=args.wstep)
-            result = f"image max: {mx}"
-        elif w_bank:
-            phase = "w_gridding"
-            with traced(phase):
-                mx, _ = ds.w_gridding(wkern_path, vis_path, **common)
-            result = f"image max: {mx}"
-        elif args.mode == "aw":
-            phase = "aw_gridding"
-            opts = idg_opts if args.idg else {}
-            with traced(phase):
+                                        wstep=args.wstep)
+            elif w_bank and args.checkpoint:
+                phase = ("w_gridding_out_of_core" if args.out_of_core
+                         else "w_gridding_checkpointed")
+                mx, _ = getattr(ds, phase)(wkern_path, vis_path,
+                                           args.checkpoint, **common,
+                                           slab=args.slab)
+            elif w_bank:
+                phase = "w_gridding"
+                mx, _ = ds.w_gridding(
+                    wkern_path, vis_path, **common,
+                    device_phases=args.device_phases,
+                    dump_intermediates=args.dump_intermediates)
+            elif args.mode == "aw":
+                phase = "aw_gridding"
+                opts = idg_opts if args.idg else {}
                 mx, _ = ds.aw_gridding(None if args.idg else wkern_path,
                                        akern_path, vis_path, idg=args.idg,
+                                       device_phases=args.device_phases,
                                        **common, **opts)
+            else:
+                phase = "idg_gridding"
+                mx, _ = ds.idg_gridding(vis_path, **common, **idg_opts,
+                                        device_phases=args.device_phases)
             result = f"image max: {mx}"
-        else:
-            phase = "idg_gridding"
-            mx, _ = ds.idg_gridding(vis_path, **common, **idg_opts,
-                                    timer=timer,
-                                    device_phases=args.device_phases)
-            result = f"image max: {mx}"
+            done = dict(image_max=mx)
     except (FileNotFoundError, ValueError, KeyError,
             NotImplementedError) as e:
         print(f"error: {e}", file=sys.stderr)
@@ -306,6 +336,8 @@ def main(argv=None) -> int:
         print(f"phase {phase} (read + compute + write): "
               f"{time.perf_counter() - t0:.3f} s on {device}")
     print(result)
+    metrics.emit("run/done", **done, phases=timer.times,
+                 counters=_all_counters(timer))
     return 0
 
 

@@ -1,7 +1,8 @@
 """HDF5 reads and writes (port of ``ska_sdp_tpu/io/h5.py`` with its h5py
-backend).  ``h5py`` is imported inside each function, so importing this
-module needs no h5py; the reference's native C++ backend is not ported
-yet."""
+backend, the leading-axis slice read and shape query of the out-of-core
+ingest included).  ``h5py`` is imported inside each function, so importing
+this module needs no h5py; the reference's native C++ backend is not
+ported yet."""
 
 from __future__ import annotations
 
@@ -56,3 +57,21 @@ def write_dataset(path: str, name: str, data: np.ndarray) -> None:
         if name in f:
             del f[name]
         f.create_dataset(name, data=np.ascontiguousarray(data))
+
+
+def read_dataset_slice(path: str, name: str, start: int, count: int,
+                       dtype=None) -> np.ndarray:
+    """Rows ``[start, start + count)`` of a dataset along its leading
+    axis."""
+    import h5py
+
+    with h5py.File(fix_ext(path), "r") as f:
+        arr = np.asarray(f[name][start:start + count])
+    return arr if dtype is None else arr.astype(dtype)
+
+
+def dataset_shape(path: str, name: str) -> tuple[int, ...]:
+    import h5py
+
+    with h5py.File(fix_ext(path), "r") as f:
+        return tuple(f[name].shape)

@@ -1,5 +1,8 @@
-"""Utilities of the port (``utils/timing.py``: phase timers)."""
+"""Utilities of the port: phase timers (``utils/timing.py``), the JSON-lines
+metrics sink (``utils/metrics.py``) and checkpoints
+(``utils/checkpoint.py``)."""
 
+from .metrics import MetricsSink
 from .timing import PhaseTimer
 
-__all__ = ["PhaseTimer"]
+__all__ = ["MetricsSink", "PhaseTimer"]

@@ -172,9 +172,10 @@ class TestAWPipeline:
             assert img.shape == (N, N) and np.isfinite(img).all()
             assert mx == pytest.approx(float(img.max()))
         assert not np.array_equal(img_f, img_i)
-        with pytest.raises(NotImplementedError, match="device_phases"):
-            ds.aw_gridding(None, "a.h5", "v.h5", idg=True,
-                           device_phases=True, device="cpu")
+        # the staged route (its run prep sorts the raster) images the same
+        _, img_s = ds.aw_gridding(None, *paths[1:], config=cfg, idg=True,
+                                  device_phases=True, device="cpu")
+        assert _rel(_crop(img_s), _crop(img_i)) < 1e-4
 
 
 class TestCLI:
@@ -223,7 +224,7 @@ class TestCLI:
     @pytest.mark.parametrize("argv,rc,msg", [
         (["--mode", "predict", "--idg"], 1, "requires --model"),
         (["--mode", "idg", "--aterms"], 1, "--aterms requires"),
-        (["--mode", "predict", "--model", "m.h5", "--metrics", "m.jsonl"],
+        (["--mode", "predict", "--model", "m.h5", "--distributed"],
          2, "not yet ported"),
         (["--mode", "aw", "--idg", "-i", "nowhere"], 1,
          "input file not found"),

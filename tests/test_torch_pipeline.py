@@ -133,10 +133,10 @@ class TestCLI:
         assert got.dtype == np.float64
         assert _rel(got, want) < 1e-4
 
-    @pytest.mark.parametrize("argv", [["--metrics", "m.jsonl"],
+    @pytest.mark.parametrize("argv", [["--xla-dump", "dump"],
                                       ["--gridder", "xla"],
                                       ["--distributed"],
-                                      ["--device-phases"]])
+                                      ["--backend", "tpu"]])
     def test_unported_surfaces_exit_cleanly(self, argv, capsys):
         from ska_sdp_tpu_torch import cli
 

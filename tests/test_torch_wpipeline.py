@@ -246,13 +246,13 @@ class TestCLI:
         assert f"input file not found: {tmp_path / 'wkern.h5'}" in err
 
     @pytest.mark.parametrize("argv", [
-        ["--mode", "w", "--checkpoint", "run.ckpt"],
-        ["--mode", "w", "--out-of-core"],
-        ["--mode", "w", "--dump-intermediates", "dump.h5"],
-        ["--mode", "w", "--device-phases"],
-        ["--mode", "wcache", "--device-phases"],
+        ["--mode", "w", "--distributed"],
+        ["--mode", "w", "--gridder", "xla"],
+        ["--mode", "w", "--backend", "tpu"],
+        ["--mode", "w", "--xla-dump", "dump"],
+        ["--mode", "wcache", "--distributed"],
         ["--mode", "conv", "--xla-dump", "dump"],
-        ["--mode", "simple", "--slab", "100"],
+        ["--mode", "simple", "--gridder", "auto"],
     ])
     def test_unported_surfaces_exit_2(self, argv, capsys):
         assert cli.main(argv) == 2
