@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke test of ska_sdp_tpu_torch: the ported imaging, prediction and
-spectral-cube paths, the PSF-normalised imaging, and the staged,
-checkpointed and streamed run surfaces end to end on one NVIDIA GPU,
+spectral-cube paths, the PSF-normalised imaging, the staged,
+checkpointed and streamed run surfaces and the sharded steps of the
+scale-out (at world size 1) end to end on one NVIDIA GPU,
 through the hand-written CUDA kernels (the streamed IDG gridder and
 degridder, which also serve the fixed-tile IDG route and IDG-AW at every
 even subgrid, the bank w-projection scatter, which also serves ``--mode
@@ -229,7 +230,35 @@ result line):
     scatter on the card; printed without a bound, its rel-L2 against
     ``w_image`` (other weights); a slab's scatter against the plain
     scatter; the histogram pass's, the loop's and the prefetch wait's
-    times.
+    times;
+31. the scale-out (``ska_sdp_tpu_torch.parallel``) at world size 1 on
+    NCCL (one card: NCCL puts no two ranks on one GPU; the process group
+    exists only for phases 31-35): ``make_sharded_wproj_step``,
+    ``_gridfft`` (the pencil FFT) and ``_gridscatter`` (reduce-scatter,
+    the row-sharded Hermitian, the pencil FFT) on phase 4's observation
+    with phase 13's kind of bank, each with the launch counts reset just
+    before: one scatter launch a step, the image within 1e-4 of
+    ``w_image``; the first step's scatter against the plain scatter;
+32. ``make_sharded_idg_step`` at S=64 and S=32 (the fixed-tile route):
+    one gridder launch each, the image within 1e-4 over the central 75%
+    of the same chain unsharded on the card (weights, mirroring,
+    ``kernels.idg_gridder``, Hermitian, inverse FFT, taper);
+33. ``make_sharded_predict_step`` of phase 8's model: one gather launch,
+    within 5e-5 of ``w_predict_vis``; its gather against the plain gather;
+34. ``make_sharded_idg_aw_step`` on phase 9's IDG-AW track shape with the
+    run bound of ``aw_idg_image`` from the rank's shard: 0 dropped, one
+    gridder launch, the image within 1e-4 over the central 75% of the
+    same chain on one device; its gridder against the plain gridder;
+35. ``models.spectral.idg_cube_sharded`` (the in-memory core of
+    ``idg_gridding_multi_sharded``) on phase 24's cube observation: one
+    gridder launch a channel, each channel within 1e-4 over the central
+    75% of the same core on the plain kernels on the card; printed
+    without a bound, its distance from ``idg_cube`` (exact per-channel
+    coordinates against binning shared across a group).
+
+Each of phases 31-35 prints its wall time (median of 3 synchronised
+calls), its launches, the time of one ``all_reduce`` of the
+46,080,000-byte 2400² grid, and the card's name and power limit.
 
 The line before last is the ``nvidia-smi`` name and power limit, the one
 before it a JSON summary of the kernels (``replaces`` lists each TPU
@@ -878,6 +907,7 @@ def main() -> int:
     aw48 = aw48_phases(torch, dev, card, vd, obs, img, model)
     psf = psf_phases(torch, dev, card, vd, obs)
     runs = run_surface_phases(torch, dev, card, vd, obs)
+    scale = scaleout_phases(torch, dev, card, vd, obs, model)
 
     print(json.dumps({"kernels": [{
         "name": stream.GRID_KERNEL,
@@ -901,7 +931,7 @@ def main() -> int:
                     "ska_sdp_tpu/kernels/idg_aw_stream_pallas.py:1014, "
                     "ska_sdp_tpu/kernels/idg_aw_degrid_pallas.py:82",
         **degrid,
-    }, *wproj, aw, *tile, *aw48, *psf, *runs]}))
+    }, *wproj, aw, *tile, *aw48, *psf, *runs, *scale]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
@@ -3029,6 +3059,287 @@ def run_surface_phases(torch, dev, card, vd, obs):
           f"with a host copy a slab {t_s:.3f} ms (prefetch wait median "
           f"{statistics.median(waits):.3f} ms); w_image {t_w:.3f} ms "
           f"[{card}]")
+    return entries
+
+
+GRID_BYTES = 2400 * 2400 * 8       # the main path's complex64 uv-grid
+
+
+def allreduce_ms(torch, mesh) -> float:
+    """Median time of one ``all_reduce`` of a 2400² complex64 grid on the
+    mesh (CUDA events)."""
+    from ska_sdp_tpu_torch.parallel.mesh import all_reduce_
+
+    g = torch.zeros((2400, 2400), dtype=torch.complex64, device=mesh.device)
+    return timed_ms(torch, lambda: all_reduce_(g, mesh))
+
+
+def gather_entry(torch, card, label, call, launches):
+    """The ``kernels`` entry of one recorded bank gather call (``args`` of
+    ``wproj_degridder``): the kernel against the plain gather on the same
+    inputs, both timed, and the bound (8 flop per in-bounds tap; inputs
+    read once and the visibilities written once)."""
+    from ska_sdp_tpu_torch.kernels import wproj
+    from ska_sdp_tpu_torch.ops.gridding import degrid_wproj
+
+    (bank, grid, p, wbin), kw, out = call
+    ref = degrid_wproj(bank, grid, p, wbin, chunk=8192)
+    on, rn = out.cpu().numpy(), ref.cpu().numpy()
+    err, max_abs = rel_l2(on, rn), float(np.abs(on - rn).max())
+    if not err <= KERNEL_TOL:
+        raise AssertionError(f"{label} gather parity failed: {err}")
+    t_k = timed_ms(torch, lambda: wproj.wproj_degridder(bank, grid, p, wbin))
+    t_p = timed_ms(torch, lambda: degrid_wproj(bank, grid, p, wbin,
+                                               chunk=8192))
+    nw, qpx, _, gh, gw = bank.shape
+    shape = tuple(grid.shape)
+    y0, x0, _, valid = wproj.wproj_records(shape, qpx, gh, gw,
+                                           nw * qpx * qpx, p, wbin)
+    rows = torch.clamp(y0 + gh, max=shape[0]) - torch.clamp(y0, min=0)
+    cols = torch.clamp(x0 + gw, max=shape[1]) - torch.clamp(x0, min=0)
+    taps = int((rows.clamp(min=0) * cols.clamp(min=0))[valid].sum())
+    b_ms, b_by = bound(8 * taps, nbytes(bank, grid, p, wbin, out))
+    print(f"  {label} gather ({p.shape[0]} records): kernel vs plain rel-L2 "
+          f"{err:.3e} (bound {KERNEL_TOL}); kernel {t_k:.3f} ms, plain "
+          f"{t_p:.3f} ms, bound {b_ms:.4f} ms ({b_by}; {taps} in-bounds taps) "
+          f"[{card}]")
+    return {"name": f"{wproj.DEGRID_KERNEL} ({label})", "route": "cuda",
+            "source": "ska_sdp_tpu_torch/csrc/wproj_degrid.cu",
+            "replaces": "ska_sdp_tpu/kernels/wproj_degrid_resident_pallas.py"
+                        ":39, ska_sdp_tpu/kernels/wproj_degrid_pallas.py:47",
+            "launches": launches, "max_abs_err": max_abs, "ms": t_k,
+            "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None}
+
+
+def stream_grid_entry(torch, card, label, call, launches, n_rec):
+    """The ``kernels`` entry of one recorded streamed gridder call (``args``
+    of ``idg_aw_grid_from_records_stream``): the kernel against its plain
+    version on the same records, both timed, and the tensor-core bound."""
+    from ska_sdp_tpu_torch.kernels import idg_aw_stream as stream
+
+    args, gkw, out = call
+    recs, shape, scr = args[:7], args[7], args[8]
+    S = gkw["subgrid"]
+
+    def plain():
+        return stream.grid_from_records_plain(
+            *recs, scr, grid_shape=shape, **gkw)[S:S + shape[0],
+                                                 S:S + shape[1]]
+
+    on, rn = out.cpu().numpy(), plain().cpu().numpy()
+    err, max_abs = rel_l2(on, rn), float(np.abs(on - rn).max())
+    if not err <= KERNEL_TOL:
+        raise AssertionError(f"{label} gridder parity failed: {err}")
+    t_k = timed_ms(torch, lambda: stream.idg_aw_grid_from_records_stream(
+        *recs, shape, scr, **gkw))
+    t_p = timed_ms(torch, plain, reps=3)
+    n_runs, longest, mean = run_stats(recs[1], recs[2])
+    io = nbytes(*recs, scr) + (shape[0] + 2 * S) ** 2 * 8
+    _, (b_ms, b_by, _, _) = idg_stream_bounds(S, n_rec, n_runs, io)
+    print(f"  {label} gridder (S={S}, {n_runs} runs, longest {longest}, "
+          f"mean {mean:.2f}): vs plain rel-L2 {err:.3e} (bound "
+          f"{KERNEL_TOL}); kernel {t_k:.3f} ms, plain {t_p:.3f} ms, "
+          f"tensor-core bound {b_ms:.3f} ms ({b_by}) [{card}]")
+    return {"name": f"{stream.GRID_KERNEL} ({label})", "route": "cuda",
+            "source": "ska_sdp_tpu_torch/csrc/idg_grid.cu",
+            "replaces": "ska_sdp_tpu/kernels/idg_aw_stream_pallas.py:161, "
+                        "ska_sdp_tpu/kernels/idg_aw_pallas.py:360",
+            "launches": launches, "max_abs_err": max_abs, "ms": t_k,
+            "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None}
+
+
+def scaleout_phases(torch, dev, card, vd, obs, model):
+    """Phases 31-35: the sharded steps of ``ska_sdp_tpu_torch.parallel`` and
+    the sharded cube core at world size 1 on NCCL (one card: NCCL puts no
+    two ranks on one GPU), each against its unsharded chain on the card.
+    The process group lives only for these phases.  Returns the entries of
+    the ``kernels`` line of the kernels they launch."""
+    import torch.distributed as dist
+
+    from ska_sdp_tpu_torch.parallel import initialize, make_mesh
+
+    if dist.is_initialized():
+        raise AssertionError("a process group exists before phase 31")
+    initialize(device=dev)
+    try:
+        mesh = make_mesh(device=dev)
+        print(f"scale-out: process group on {dist.get_backend()}, world "
+              f"size {mesh.size}, rank {mesh.rank} on {mesh.device} "
+              f"(one card: every exchange is the rank's own) [{card}]")
+        return _scaleout(torch, dev, card, vd, obs, model, mesh)
+    finally:
+        dist.destroy_process_group()
+
+
+def _scaleout(torch, dev, card, vd, obs, model, mesh):
+    from ska_sdp_tpu_torch import parallel as par
+    from ska_sdp_tpu_torch.kernels import idg_aw_stream as stream
+    from ska_sdp_tpu_torch.kernels import idg_tile, wproj
+    from ska_sdp_tpu_torch.models import dataset as ds
+    from ska_sdp_tpu_torch.models import spectral as sp
+    from ska_sdp_tpu_torch.parallel import sharded
+    from ska_sdp_tpu_torch.types import SINGLE
+
+    make = dict(w=par.make_sharded_wproj_step,
+                gridfft=par.make_sharded_wproj_step_gridfft,
+                gridscatter=par.make_sharded_wproj_step_gridscatter,
+                idg=par.make_sharded_idg_step,
+                predict=par.make_sharded_predict_step,
+                aw=par.make_sharded_idg_aw_step)
+    n_vis = vd.vis.shape[0]
+    n = int(round(THETA * LAM))
+    centers, build_bank = w_bank_inputs(torch, obs, dev)
+    bank = build_bank().to(torch.complex64)
+    bank_c = torch.conj(bank).resolve_conj()
+    cent = torch.as_tensor(centers, dtype=torch.float32, device=dev)
+    uvw, f, vis = ds.idg_inputs(vd, device=dev)
+    freq = vd.frequency
+    kw = dict(theta=THETA, lam=LAM, device=dev)
+    entries = []
+
+    def phase_line(label, ms, launches):
+        print(f"  {label}: wall {ms:.3f} ms (median of 3 after a warm-up), "
+              f"launches {launches}, all_reduce of the {GRID_BYTES:,}-byte "
+              f"grid {allreduce_ms(torch, mesh):.3f} ms [{card}]")
+
+    # ---- 31. the w steps: replicated, pencil-FFT and reduce-scatter -------
+    ref_w = ds.w_image(vd, bank, centers, **kw).image.cpu().numpy()
+    for label in ("w", "gridfft", "gridscatter"):
+        step = make[label](mesh, THETA, LAM)
+        calls = []
+        wproj.reset_launch_count()
+        with spy(sharded, "wproj_gridder", calls):
+            img = step(bank_c, cent, uvw, freq, vis)
+            torch.cuda.synchronize()
+        launches = wproj.launch_count(wproj.GRID_KERNEL)
+        img = img.cpu().numpy()
+        err = rel_l2(img, ref_w)
+        print(f"sharded {label} step ({n_vis} vis, {n}², 32-plane qpx=8 "
+              f"bank): image vs w_image rel-L2 {err:.3e} (bound "
+              f"{IMAGE_TOL}); wproj_grid launches {launches} (expected 1)")
+        phase_line(f"sharded {label} step", wall_ms(torch, lambda: step(
+            bank_c, cent, uvw, freq, vis), reps=3), launches)
+        if launches != 1 or not np.isfinite(img).all():
+            raise AssertionError(f"sharded {label} step: {launches} "
+                                 "launches or a non-finite image")
+        if not err <= IMAGE_TOL:
+            raise AssertionError(f"sharded {label} step image: {err}")
+        if label == "w":
+            entries.append(scatter_entry(torch, card, "sharded w step",
+                                         calls[0], launches))
+
+    # ---- 32. the IDG step at S=64 and S=32 ---------------------------------
+    for S in (64, 32):
+        step = make["idg"](mesh, THETA, LAM, subgrid=S, taper_beta=BETA)
+        stream.reset_launch_count()
+        idg_tile.reset_launch_count()
+        img = step(uvw, freq, vis)
+        torch.cuda.synchronize()
+        route, launches = route_launches(stream, idg_tile, "grid")
+        ref, _, _ = ds._idg_pipeline(uvw, f, vis, theta=THETA, lam=LAM,
+                                     subgrid=S, taper_beta=BETA)
+        img, ref = img.cpu().numpy(), ref.cpu().numpy()
+        err = rel_l2(crop75(img), crop75(ref))
+        print(f"sharded IDG step S={S}: image vs the unsharded chain on the "
+              f"card rel-L2 {err:.3e} over the central 75% (bound "
+              f"{IMAGE_TOL}); idg_grid launches {launches}, through the "
+              f"fixed-tile route {route}")
+        phase_line(f"sharded IDG step S={S}", wall_ms(
+            torch, lambda: step(uvw, freq, vis), reps=3), launches)
+        if launches != 1 or not np.isfinite(img).all():
+            raise AssertionError(f"sharded IDG step S={S}: {launches}")
+        if not err <= IMAGE_TOL:
+            raise AssertionError(f"sharded IDG step S={S} image: {err}")
+
+    # ---- 33. the predict step -----------------------------------------------
+    step = make["predict"](mesh, THETA, LAM)
+    model_t = torch.as_tensor(model, device=dev)
+    calls = []
+    wproj.reset_launch_count()
+    with spy(ds, "wproj_degridder", calls):
+        pred = step(bank, cent, model_t, uvw, freq)
+        torch.cuda.synchronize()
+    launches = wproj.launch_count(wproj.DEGRID_KERNEL)
+    ref = ds.w_predict_vis(vd, bank, centers, model, **kw).vis
+    err = rel_l2(pred.cpu().numpy(), ref.cpu().numpy())
+    print(f"sharded predict step ({n_vis} records): vs w_predict_vis rel-L2 "
+          f"{err:.3e} (bound {KERNEL_TOL}); wproj_degrid launches "
+          f"{launches} (expected 1)")
+    phase_line("sharded predict step", wall_ms(torch, lambda: step(
+        bank, cent, model_t, uvw, freq), reps=3), launches)
+    if launches != 1 or not err <= KERNEL_TOL:
+        raise AssertionError(f"sharded predict: {launches} launches, {err}")
+    entries.append(gather_entry(torch, card, "sharded predict", calls[0],
+                                launches))
+
+    # ---- 34. the IDG-AW step on the benchmark's track shape ---------------
+    t = aw_track_inputs()
+    uvw_t, f_t, vis_t = ds.idg_inputs(t.vd, device=dev)
+    a1 = torch.as_tensor(t.a1.astype(np.int32), device=dev)
+    a2 = torch.as_tensor(t.a2.astype(np.int32), device=dev)
+    scr = ds._aw_screens(t.ak, SUBGRID, THETA, LAM, None, SINGLE, dev)
+    mr = ds._aw_run_bound(t.a1, t.a2, t.n)      # the rank's shard: all
+    step = make["aw"](mesh, THETA, LAM, subgrid=SUBGRID, taper_beta=BETA,
+                      max_runs=mr)
+    calls = []
+    stream.reset_launch_count()
+    with spy(stream, "idg_aw_grid_from_records_stream", calls):
+        img, nd = step(uvw_t, C, vis_t, a1, a2, scr)
+        torch.cuda.synchronize()
+    launches = stream.launch_count(stream.GRID_KERNEL)
+    ref, _, nd_ref = ds._aw_idg_pipeline(scr, uvw_t, a1, a2, f_t, vis_t,
+                                         theta=THETA, lam=LAM,
+                                         subgrid=SUBGRID, taper_beta=BETA,
+                                         max_runs=mr)
+    img, ref = img.cpu().numpy(), ref.cpu().numpy()
+    err = rel_l2(crop75(img), crop75(ref))
+    print(f"sharded IDG-AW step ({t.n} track records, 64 stations, random "
+          f"15² A-kernels, S={SUBGRID}, max_runs {mr}): dropped {int(nd)} "
+          f"(unsharded {int(nd_ref)}); image vs the unsharded chain on the "
+          f"card rel-L2 {err:.3e} over the central 75% (bound {IMAGE_TOL}); "
+          f"idg_grid launches {launches}")
+    phase_line("sharded IDG-AW step", wall_ms(torch, lambda: step(
+        uvw_t, C, vis_t, a1, a2, scr), reps=3), launches)
+    if int(nd) != 0 or int(nd_ref) != 0 or launches != 1:
+        raise AssertionError(f"sharded IDG-AW: dropped {int(nd)}, "
+                             f"{launches} launches")
+    if not (np.isfinite(img).all() and err <= IMAGE_TOL):
+        raise AssertionError(f"sharded IDG-AW image: {err}")
+    entries.append(stream_grid_entry(torch, card, "sharded IDG-AW",
+                                     calls[0], launches, t.n))
+    del t, uvw_t, vis_t, a1, a2, calls
+
+    # ---- 35. the sharded cube core on the cube observation -----------------
+    _, vd_c = cube_observation()
+    nch = vd_c.frequencies.shape[0]
+    cube_kw = dict(theta=THETA, lam=LAM, subgrid=SUBGRID, taper_beta=BETA)
+    stream.reset_launch_count()
+    res = sp.idg_cube_sharded(vd_c, mesh, **cube_kw)
+    torch.cuda.synchronize()
+    launches = stream.launch_count(stream.GRID_KERNEL)
+    with plain_kernels(torch):
+        ref = sp.idg_cube_sharded(vd_c, mesh, **cube_kw)
+    local = sp.idg_cube(vd_c, device=dev, **cube_kw)
+    cube, ref_c = res.cube.cpu().numpy(), ref.cube.cpu().numpy()
+    loc = local.cube.cpu().numpy()
+    errs = [rel_l2(crop75(cube[c]), crop75(ref_c[c])) for c in range(nch)]
+    far = [rel_l2(crop75(cube[c]), crop75(loc[c])) for c in range(nch)]
+    n_c = vd_c.uvw.shape[0]
+    print(f"sharded cube core (idg_cube_sharded, {nch} channels x {n_c} "
+          f"records = {nch * n_c} channel-vis, S={SUBGRID}): groups "
+          f"{[(i, j) for i, j, _, _ in res.groups]}, idg_grid launches "
+          f"{launches} (expected {nch}); vs the same core on the plain "
+          f"kernels rel-L2 max {max(errs):.3e} over the central 75% (bound "
+          f"{IMAGE_TOL}); vs idg_cube (no bound: exact per-channel "
+          f"coordinates against shared binning) max {max(far):.3e}")
+    phase_line("sharded cube core", wall_ms(torch, lambda: sp.idg_cube_sharded(
+        vd_c, mesh, **cube_kw), reps=3), launches)
+    if launches != nch or not np.isfinite(cube).all():
+        raise AssertionError(f"sharded cube: {launches} launches")
+    if not max(errs) <= IMAGE_TOL:
+        raise AssertionError(f"sharded cube parity: {errs}")
     return entries
 
 

@@ -28,11 +28,17 @@ Examples:
         -i data/ --all                 # also --mode w, --mode aw
     python -m ska_sdp_tpu_torch.cli --mode w -i data/ --all \
         --dump-intermediates dbg.h5 --metrics m.jsonl
+    SKA_SDP_TPU_COORDINATOR=127.0.0.1:29500 SKA_SDP_TPU_NPROCS=2 \
+    SKA_SDP_TPU_PROC_ID=0 python -m ska_sdp_tpu_torch.cli --distributed \
+        --mode w -i data/ --all -o w.h5   # and PROC_ID=1 beside it
+    python -m ska_sdp_tpu_torch.cli --distributed --mode idg --channels 4 \
+        -i data/ --all                 # one process: a world of one
 
 Every flag of the reference parses, and every mode runs.  Flags that are
-not ported yet (``--distributed``, ``--gridder``, ``--xla-dump``,
-``--backend tpu``) exit with status 2 and a "not yet ported" message;
-``--backend cpu`` is ``--device cpu``.
+not ported (``--gridder``, ``--xla-dump``, ``--backend tpu``) exit with
+status 2 and a "not yet ported" message; ``--backend cpu`` is ``--device
+cpu``.  ``--distributed`` serves ``--mode w``, ``--mode idg`` and
+``--mode idg --channels N``, as the reference does; other modes exit 1.
 """
 
 from __future__ import annotations
@@ -118,7 +124,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="visibilities per checkpoint slab (one bank scatter "
                         "launch and one checkpoint write each)")
     p.add_argument("--distributed", action="store_true",
-                   help="multi-device imaging (not yet ported)")
+                   help="multi-device imaging (modes w, idg and idg "
+                        "--channels N), one process a device; the group "
+                        "from SKA_SDP_TPU_COORDINATOR/_NPROCS/_PROC_ID, "
+                        "NCCL on cuda, gloo on cpu")
     p.add_argument("--device-phases", action="store_true",
                    help="run the pipeline as separately synchronised stages "
                         "and print each stage's device time (modes w, idg, "
@@ -177,6 +186,78 @@ def _not_ported(what: str) -> int:
     return 2
 
 
+def _dispatch_distributed(args, cfg, timer, metrics, vis_path, wkern_path,
+                          device) -> int:
+    """``--distributed``: the sharded steps (``parallel/``), one process a
+    device.  The process group comes from the SKA_SDP_TPU_COORDINATOR /
+    _NPROCS / _PROC_ID environment (a world of one without it), on NCCL
+    for ``--device cuda`` and gloo for ``--device cpu``; the mesh is
+    ``("host", "vis")`` over several processes, ``("vis",)`` over one.
+    Serves ``--mode w``, ``--mode idg`` and ``--mode idg --channels N``;
+    only rank 0 writes.  The group is destroyed on the way out."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from .parallel import initialize, make_host_vis_mesh, make_mesh
+
+    initialize(device=device)
+    try:
+        nproc = dist.get_world_size()
+        mesh = (make_host_vis_mesh(device=device) if nproc > 1
+                else make_mesh(device=device))
+        print(f"distributed: {nproc} process(es), {mesh.size} device(s), "
+              f"mesh axes {mesh.axis_names}", flush=True)
+        out = args.output if mesh.rank == 0 else None
+        if args.mode == "idg" and args.channels is not None \
+                and args.channels > 1:
+            from .models import spectral
+
+            mx, _img, cube = spectral.idg_gridding_multi_sharded(
+                vis_path, args.channels, n=cfg.n_vis, outfile=out,
+                config=cfg, timer=timer, subgrid=args.subgrid, mesh=mesh)
+            print(f"imaged {cube.shape[0]} channels (sharded over "
+                  f"{mesh.size} devices), continuum image max: {mx}")
+            metrics.emit("run/done", image_max=mx,
+                         channels=int(cube.shape[0]), phases=timer.times,
+                         counters=_all_counters(timer))
+            return 0
+        if args.mode not in ("w", "idg"):
+            print("error: --distributed supports --mode w, --mode idg and "
+                  "--mode idg --channels N", file=sys.stderr)
+            return 1
+
+        from .models.dataset import _bank, _write_image, get_wkernels
+        from .parallel import (load_vis_sharded, make_sharded_idg_step,
+                               make_sharded_wproj_step)
+
+        with timer.phase("ingest/vis-sharded"):
+            uvw, vis, freq = load_vis_sharded(vis_path, mesh, n=cfg.n_vis,
+                                              precision=cfg.precision)
+        theta, lam = cfg.grid.theta, cfg.grid.lam
+        with timer.phase("compile+grid+fft"):
+            if args.mode == "w":
+                with timer.phase("ingest/wkern"):
+                    wkerns, wbins = get_wkernels(wkern_path, theta)
+                bank, centers = _bank(wkerns, wbins, cfg.precision,
+                                      mesh.device)
+                img = make_sharded_wproj_step(mesh, theta, lam)(
+                    torch.conj(bank).resolve_conj(), centers, uvw, freq, vis)
+            else:
+                img = make_sharded_idg_step(mesh, theta, lam,
+                                            subgrid=args.subgrid)(uvw, freq,
+                                                                  vis)
+            img = img.cpu().numpy()
+        mx = float(np.max(img))
+        _write_image(out, img, timer)
+        print(f"image max: {mx}")
+        metrics.emit("run/done", image_max=mx, phases=timer.times,
+                     counters=_all_counters(timer))
+        return 0
+    finally:
+        dist.destroy_process_group()
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
@@ -193,8 +274,7 @@ def main(argv=None) -> int:
 
     for flag, on in (("--backend tpu", args.backend == "tpu"),
                      ("--gridder", args.gridder),
-                     ("--xla-dump", args.xla_dump),
-                     ("--distributed", args.distributed)):
+                     ("--xla-dump", args.xla_dump)):
         if on:
             return _not_ported(flag)
     from .utils.metrics import MetricsSink
@@ -252,6 +332,13 @@ def main(argv=None) -> int:
     timer = PhaseTimer(enabled=(args.dump_phases or args.device_phases)
                        or None, trace_dir=args.trace_dir)
     common["timer"] = timer
+    if args.distributed:
+        try:
+            return _dispatch_distributed(args, cfg, timer, metrics, vis_path,
+                                         wkern_path, device)
+        except (FileNotFoundError, ValueError, KeyError) as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 1
     done = {}                   # the run/done event's result fields
     if args.mode == "w" and not multichannel:
         if args.checkpoint and (args.device_phases

@@ -10,13 +10,14 @@ channels cost one sort and N kernel launches.  Records a channel's drift
 pushes out of their binning window are zeroed and counted.  Groups are
 planned on the host from the data's uv extent (:func:`plan_channel_groups`).
 
-  ==========================  ====================  ======================
+  ==========================  ====================  ==============================
   path                        in memory             file
-  ==========================  ====================  ======================
+  ==========================  ====================  ==============================
   IDG cube                    ``idg_cube``          ``idg_gridding_multi``
   IDG-AW cube                 ``aw_idg_cube``       ``aw_idg_gridding_multi``
   w-projection cube           ``w_cube``            ``w_gridding_multi``
-  ==========================  ====================  ======================
+  IDG cube, sharded           ``idg_cube_sharded``  ``idg_gridding_multi_sharded``
+  ==========================  ====================  ==============================
 
 Plain IDG grids each channel through the streamed kernel with unit screens
 (``csrc/idg_grid.cu``); where the reference's run-table test sends the
@@ -449,6 +450,68 @@ def w_cube(vis_data: VisData, wkerns, wbins, *,
     return _cube([cube], [zero], n, timer, [(0, nch, f_ref, 0)], ["wproj"])
 
 
+def idg_cube_sharded(vis_data: VisData, mesh, *,
+                     channels: Optional[int] = None, theta: float = 0.008,
+                     lam: int = 300000, n: Optional[int] = None,
+                     subgrid: int = 64, taper_beta: float = 12.0,
+                     precision: str = "single",
+                     timer: Optional[PhaseTimer] = None) -> CubeImage:
+    """IDG spectral cube sharded over the ranks of ``mesh``
+    (``parallel.Mesh``), on each rank's device: every rank calls it with
+    the same ``vis_data`` and grids its own block of records
+    (``parallel.make_sharded_spectral_idg_step``, one all-reduce a
+    channel); the cube is on every rank.
+
+    Each channel is gridded at its own coordinates, the reference channel's
+    dilated (no shared binning, so nothing is dropped), while the uniform
+    weights stay the group's: one histogram at its reference channel,
+    summed over the ranks.  The records are padded to a multiple of the
+    mesh size with mask 0, so any record count is exact."""
+    from ..parallel.mesh import pad_to_multiple, shard_range
+    from ..parallel.sharded import make_sharded_spectral_idg_step
+
+    timer = timer or PhaseTimer()
+    prec = _precision(precision)
+    if vis_data.vis_chan is None or vis_data.frequencies is None:
+        raise ValueError("a spectral cube needs vis_chan and frequencies")
+    with timer.phase("host/prep"):
+        n = n if n is not None else vis_data.vis.shape[0]
+        nfreq = vis_data.frequencies.shape[0]
+        nch = nfreq if channels is None else min(channels, nfreq)
+        freqs = np.asarray(vis_data.frequencies[:nch], np.float64)
+        n_pad = pad_to_multiple(n, mesh.size)
+        sl = shard_range(n_pad, mesh)
+        uvw_h = np.zeros((n_pad, 3), prec.np_real)
+        uvw_h[:n] = np.asarray(vis_data.uvw[:n], prec.np_real)
+        mask_h = np.zeros((n_pad,), prec.np_real)
+        mask_h[:n] = 1.0
+        vis_h = np.zeros((nch, n_pad), prec.np_complex)
+        vis_h[:, :n] = vis_data.vis_chan[:n, :nch].T
+        n_grid = int(round(theta * lam))
+        ext = uv_extent_cells(vis_data.uvw[:n], float(freqs.max()), lam,
+                              n_grid)
+        # the local driver's group plan, so the weights are shared alike
+        slack = (subgrid - SUPPORT) // 2 - subgrid // 4 - 1
+        groups = plan_channel_groups(freqs, ext, max(slack, 1))
+    with timer.phase("h2d/shard"):
+        uvw = torch.as_tensor(uvw_h[sl], device=mesh.device)
+        mask = torch.as_tensor(mask_h[sl], device=mesh.device)
+        vis = torch.as_tensor(np.ascontiguousarray(vis_h[:, sl]),
+                              device=mesh.device)
+    imgs = []
+    with timer.phase("compile+grid+fft"):
+        for (i, j, f_ref, _) in groups:
+            step = make_sharded_spectral_idg_step(
+                mesh, theta, lam, j - i, subgrid=subgrid,
+                taper_beta=taper_beta)
+            imgs.append(step(uvw, mask, float(np.asarray(f_ref, prec.np_real)),
+                             _ratios(freqs, i, j, f_ref, prec, mesh.device),
+                             vis[i:j]))
+        _block(imgs)
+    zero = torch.zeros((nch,), dtype=torch.int64)
+    return _cube(imgs, [zero], n, timer, groups, ["sharded"] * len(groups))
+
+
 # ---------------------------------------------------------------------------
 # file entries
 # ---------------------------------------------------------------------------
@@ -495,6 +558,31 @@ def idg_gridding_multi(datfile: str, channels: int, n: Optional[int] = None,
                    precision=config.precision_name, device=device,
                    timer=timer)
     return _file_result(res, outfile, timer)
+
+
+def idg_gridding_multi_sharded(datfile: str, channels: int,
+                               n: Optional[int] = None,
+                               outfile: Optional[str] = None,
+                               config: ImagingConfig = ImagingConfig(),
+                               timer: Optional[PhaseTimer] = None,
+                               subgrid: int = 64, taper_beta: float = 12.0,
+                               mesh=None):
+    """Multi-channel IDG imaging run from an HDF5 file, sharded over
+    ``mesh`` (default ``parallel.make_mesh()``): every rank reads the file
+    and calls :func:`idg_cube_sharded`; only rank 0 writes ``/img`` and
+    ``/img_cube``.  Returns ``(continuum max, continuum image, cube)`` on
+    every rank."""
+    from ..parallel.mesh import make_mesh
+
+    timer = timer or PhaseTimer()
+    mesh = mesh if mesh is not None else make_mesh()
+    with timer.phase("ingest/vis"):
+        data = load_vis_data(datfile)
+    res = idg_cube_sharded(data, mesh, channels=channels,
+                           theta=config.grid.theta, lam=config.grid.lam, n=n,
+                           subgrid=subgrid, taper_beta=taper_beta,
+                           precision=config.precision_name, timer=timer)
+    return _file_result(res, outfile if mesh.rank == 0 else None, timer)
 
 
 def aw_idg_gridding_multi(afile: str, datfile: str, channels: int,

@@ -224,7 +224,7 @@ class TestCLI:
     @pytest.mark.parametrize("argv,rc,msg", [
         (["--mode", "predict", "--idg"], 1, "requires --model"),
         (["--mode", "idg", "--aterms"], 1, "--aterms requires"),
-        (["--mode", "predict", "--model", "m.h5", "--distributed"],
+        (["--mode", "predict", "--model", "m.h5", "--gridder", "xla"],
          2, "not yet ported"),
         (["--mode", "aw", "--idg", "-i", "nowhere"], 1,
          "input file not found"),

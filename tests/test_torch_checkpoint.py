@@ -456,7 +456,7 @@ class TestCLI:
         if "--idg" in mode and "aw" in mode:
             assert done["counters"]["idg_aw/dropped"] == 0.0
 
-    @pytest.mark.parametrize("flag", [["--distributed"],
+    @pytest.mark.parametrize("flag", [["--gridder", "pallas"],
                                       ["--gridder", "xla"],
                                       ["--xla-dump", "x"],
                                       ["--backend", "tpu"]])

@@ -135,7 +135,7 @@ class TestCLI:
 
     @pytest.mark.parametrize("argv", [["--xla-dump", "dump"],
                                       ["--gridder", "xla"],
-                                      ["--distributed"],
+                                      ["--gridder", "auto"],
                                       ["--backend", "tpu"]])
     def test_unported_surfaces_exit_cleanly(self, argv, capsys):
         from ska_sdp_tpu_torch import cli

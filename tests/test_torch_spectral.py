@@ -538,9 +538,9 @@ class TestCLI:
                 "--idg") in capsys.readouterr().err
 
     @pytest.mark.parametrize("argv", [
-        ["--backend", "tpu"], ["--gridder", "xla"], ["--distributed"],
+        ["--backend", "tpu"], ["--gridder", "xla"], ["--gridder", "pallas"],
         ["--gridder", "auto"], ["--xla-dump", "dump"],
-        ["--distributed", "--channels", "4"]])
+        ["--xla-dump", "dump", "--channels", "4"]])
     def test_reference_flags_refused(self, argv, capsys):
         assert cli.main(["--mode", "idg", *argv]) == 2
         assert f"{argv[0]}" in capsys.readouterr().err

@@ -246,11 +246,11 @@ class TestCLI:
         assert f"input file not found: {tmp_path / 'wkern.h5'}" in err
 
     @pytest.mark.parametrize("argv", [
-        ["--mode", "w", "--distributed"],
+        ["--mode", "w", "--gridder", "pallas"],
         ["--mode", "w", "--gridder", "xla"],
         ["--mode", "w", "--backend", "tpu"],
         ["--mode", "w", "--xla-dump", "dump"],
-        ["--mode", "wcache", "--distributed"],
+        ["--mode", "wcache", "--backend", "tpu"],
         ["--mode", "conv", "--xla-dump", "dump"],
         ["--mode", "simple", "--gridder", "auto"],
     ])
