@@ -256,6 +256,42 @@ result line):
     without a bound, its distance from ``idg_cube`` (exact per-channel
     coordinates against binning shared across a group).
 
+36. low precision (``ops/lowprec.py``): all 65,536 posit16 patterns
+    decoded on the card and encoded back (the identity), a seeded sample
+    of 4,194,304 float32s (the posit range and beyond, zeros, subnormals,
+    ±inf, NaNs, raw bit patterns) encoded, and the four quantizers
+    (posit16, bf16, f8 e4m3 with its overflow to NaN, f8 e5m2) on it as
+    complex64, each equal to the plain version on the CPU bit for bit;
+    ``gridding_quantization_error`` at the bank benchmark's shape (phase
+    12's 1,048,576 records, NW=32, QPX=8, 15², 2400²) with the launch
+    counts reset just before: five scatter launches (the reference grid
+    and one a format), the four errors and the study's time; each
+    quantized grid against the plain scatter on the same quantized inputs,
+    rel-L2 ≤ 5e-5;
+37. cross-method (the scatters fed with ``ops.idg.tapered_w_bank``, the
+    exact-scatter bank of IDG's operator): IDG (``kernels.idg_gridder``,
+    S=64) on phase 4's observation with the uv snapped to the qpx=8
+    lattice and w at its bank plane, against the bank scatter on the
+    tapered bank of phase 13's 32 planes; IDG-AW (``kernels.
+    idg_aw_gridder``, S=64) on phase 9's track shape with near-delta
+    A-kernels (unit centres, 5% noise on the central 3×3: the AW scatter
+    truncates (a1 ⊛ a2) ⊛ w to 15 taps), against the AW scatter fed with
+    the conjugated tapered bank; each pair of taper-corrected images
+    within 3e-4 (rel-L2, central 75%; the reference tests' bound), 0
+    dropped, one launch of each kernel a pair; each kernel against its
+    plain version;
+38. HDF5 on the card: ``io/native/build.find_hdf5`` looks for an HDF5 1.10
+    runtime.  With none, one line says so, naming the sonames and
+    directories searched, and the phase ends.  With one: the native
+    library is built, phase 4's observation is written with
+    ``io/synthetic.write_vis_file`` through the native backend, the CLI's
+    ``--mode idg`` file entry runs on the card (``cli.main`` with ``-o``
+    and ``-dphases``, the launch counts reset just before, its read,
+    compute and write phase times printed) and ``/img`` is read back:
+    within 1e-5 (rel-L2, central 75%) of ``idg_image`` on the same arrays;
+    its gridder against the plain gridder.  A build, read or write failure
+    fails the run.
+
 Each of phases 31-35 prints its wall time (median of 3 synchronised
 calls), its launches, the time of one ``all_reduce`` of the
 46,080,000-byte 2400² grid, and the card's name and power limit.
@@ -303,6 +339,8 @@ C = 299792458.0
 REPS = 7
 SLAB = 262_144           # phases 29-30: 4 slabs of the main path
 STAGED_TOL = 1e-5        # staged and slab-wise images against one-shot
+CROSS_TOL = 3e-4         # IDG(-AW) against the scatters on the tapered bank
+FILE_TOL = 1e-5          # the file entry's image against idg_image
 
 
 def smi() -> str:
@@ -908,6 +946,7 @@ def main() -> int:
     psf = psf_phases(torch, dev, card, vd, obs)
     runs = run_surface_phases(torch, dev, card, vd, obs)
     scale = scaleout_phases(torch, dev, card, vd, obs, model)
+    edges = edge_phases(torch, dev, card, vd, obs)
 
     print(json.dumps({"kernels": [{
         "name": stream.GRID_KERNEL,
@@ -931,7 +970,7 @@ def main() -> int:
                     "ska_sdp_tpu/kernels/idg_aw_stream_pallas.py:1014, "
                     "ska_sdp_tpu/kernels/idg_aw_degrid_pallas.py:82",
         **degrid,
-    }, *wproj, aw, *tile, *aw48, *psf, *runs, *scale]}))
+    }, *wproj, aw, *tile, *aw48, *psf, *runs, *scale, *edges]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
@@ -2744,6 +2783,49 @@ def scatter_entry(torch, card, label, call, launches):
             "library_ms": None}
 
 
+def aw_entry(torch, card, label, call, launches):
+    """The ``kernels`` entry of one recorded fused AW gridder call
+    (``args`` of ``aw_fused_grid``, its ``init`` included): the kernel
+    against the plain version on the same records and tables, both timed,
+    and the bound (per valid record the least of the dense and the
+    FFT-shaped sandwich, 6m² + 6s²; inputs read once, the grid written
+    once)."""
+    from ska_sdp_tpu_torch.kernels import aw_fused
+
+    (pt, ws, rec, vis, shape), kw, out = call
+    init = kw.get("init")
+
+    def plain():
+        g = aw_fused.aw_fused_plain(pt, ws, rec, vis, shape)
+        return g if init is None else g + init
+
+    on, rn = out.cpu().numpy(), plain().cpu().numpy()
+    err, max_abs = rel_l2(on, rn), float(np.abs(on - rn).max())
+    if not err <= KERNEL_TOL:
+        raise AssertionError(f"{label} kernel parity failed: {err}")
+    t_k = timed_ms(torch, lambda: aw_fused.aw_fused_grid(pt, ws, rec, vis,
+                                                         shape, init=init))
+    t_p = timed_ms(torch, plain)
+    s, m = rec.support, pt.shape[-1]
+    per_rec = min(8 * (m * m * s + s * s * m),
+                  (m + s) * 5 * m * int(math.log2(m))) + 6 * m * m + 6 * s * s
+    b_ms, b_by = bound(int(rec.valid.sum()) * per_rec,
+                       nbytes(pt, ws, rec.y0, rec.x0, rec.pid, rec.kidx,
+                              vis) + shape[0] * shape[1] * 8 * (
+                                  1 if init is None else 2))
+    print(f"  {label} kernel: vs plain rel-L2 {err:.3e} (bound "
+          f"{KERNEL_TOL}); kernel {t_k:.3f} ms, plain {t_p:.3f} ms, bound "
+          f"{b_ms:.3f} ms ({b_by}) [{card}]")
+    return {"name": f"{aw_fused.GRID_KERNEL} ({label})", "route": "cuda",
+            "source": "ska_sdp_tpu_torch/csrc/aw_grid.cu",
+            "replaces": "ska_sdp_tpu/kernels/aw_fused_resident_pallas.py:95, "
+                        "ska_sdp_tpu/kernels/aw_fused_pallas.py:93, "
+                        "ska_sdp_tpu/kernels/patch_scatter_pallas.py:41",
+            "launches": launches, "max_abs_err": max_abs, "ms": t_k,
+            "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None}
+
+
 def run_surface_phases(torch, dev, card, vd, obs):
     """Phases 28-30: the staged drivers, the checkpointed slab loop and the
     streamed two-pass loop on the main path's observation ``vd``/``obs``,
@@ -2834,32 +2916,7 @@ def run_surface_phases(torch, dev, card, vd, obs):
 
     call, launches = captured["w"]
     entries.append(scatter_entry(torch, card, "staged w", call, launches))
-    (pt, ws, rec, vis_r, shape), akw, out = captured["aw"][0]
-    ref = aw_fused.aw_fused_plain(pt, ws, rec, vis_r, shape)
-    on, rn = out.cpu().numpy(), ref.cpu().numpy()
-    err, max_abs = rel_l2(on, rn), float(np.abs(on - rn).max())
-    if not err <= KERNEL_TOL:
-        raise AssertionError(f"staged aw kernel parity failed: {err}")
-    t_k = timed_ms(torch, lambda: aw_fused.aw_fused_grid(pt, ws, rec, vis_r,
-                                                         shape))
-    t_p = timed_ms(torch, lambda: aw_fused.aw_fused_plain(pt, ws, rec, vis_r,
-                                                          shape))
-    s, m = 15, pt.shape[-1]
-    per_rec = min(8 * (m * m * s + s * s * m),
-                  (m + s) * 5 * m * int(math.log2(m))) + 6 * m * m + 6 * s * s
-    b_ms, b_by = bound(int(rec.valid.sum()) * per_rec,
-                       nbytes(pt, ws, rec.y0, rec.x0, rec.pid, rec.kidx,
-                              vis_r) + shape[0] * shape[1] * 8)
-    print(f"  staged aw kernel: vs plain rel-L2 {err:.3e} (bound "
-          f"{KERNEL_TOL}); kernel {t_k:.3f} ms, plain {t_p:.3f} ms, bound "
-          f"{b_ms:.3f} ms ({b_by}) [{card}]")
-    entries.append({
-        "name": f"{aw_fused.GRID_KERNEL} (staged aw)", "route": "cuda",
-        "source": "ska_sdp_tpu_torch/csrc/aw_grid.cu",
-        "replaces": "ska_sdp_tpu/kernels/aw_fused_resident_pallas.py:95",
-        "launches": captured["aw"][1], "max_abs_err": max_abs, "ms": t_k,
-        "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None})
+    entries.append(aw_entry(torch, card, "staged aw", *captured["aw"]))
     args, gkw, out = captured["aw_idg"][0]
     recs, shape, scr_k = args[:7], args[7], args[8]
     S = SUBGRID
@@ -3341,6 +3398,327 @@ def _scaleout(torch, dev, card, vd, obs, model, mesh):
     if not max(errs) <= IMAGE_TOL:
         raise AssertionError(f"sharded cube parity: {errs}")
     return entries
+
+
+# ---- phases 36-38: the last modules of the reference ------------------------
+FORMATS = ("posit16", "bf16", "f8_e4m3", "f8_e5m2")
+
+
+def lowprec_sample(n: int, seed: int) -> np.ndarray:
+    """Phase 36's ``n`` float32s: normal values scaled by 2^U(-40, 40)
+    (the posit range, 2^±28, and beyond), raw 32-bit patterns (NaN
+    payloads, ±inf, subnormals among them), explicit subnormals, and
+    zeros, ±inf, NaNs and the float8 overflow values."""
+    rng = np.random.default_rng(seed)
+    fixed = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, -np.nan, 1e-45,
+                      448.0, 463.99, 464.0, 465.0, -500.0, 57344.0, 61440.0,
+                      61441.0, 2.0 ** 28, 2.0 ** -28, 1e30, -1e-30],
+                     np.float32)
+    n_spread, n_raw = n // 2, n // 4
+    n_sub = n - n_spread - n_raw - fixed.size
+    return np.concatenate([
+        (rng.standard_normal(n_spread)
+         * np.exp2(rng.uniform(-40, 40, n_spread))).astype(np.float32),
+        rng.integers(0, 2 ** 32, n_raw, dtype=np.uint64).astype(
+            np.uint32).view(np.float32),
+        (rng.uniform(-1, 1, n_sub) * 1.17e-38).astype(np.float32),
+        fixed])
+
+
+def edge_phases(torch, dev, card, vd, obs):
+    """Phases 36-38 on the main path's observation ``vd``/``obs``.
+    Returns the entries of the ``kernels`` line of the kernels they
+    launch."""
+    entries = lowprec_phase(torch, dev, card)
+    entries += cross_method_phase(torch, dev, card, vd, obs)
+    entries += hdf5_phase(torch, dev, card, vd, obs)
+    return entries
+
+
+def lowprec_phase(torch, dev, card):
+    """Phase 36: the posit16 codec and the quantizers on the card against
+    the CPU, and the quantization study through ``csrc/wproj_grid.cu``."""
+    from ska_sdp_tpu_torch.kernels import wproj
+    from ska_sdp_tpu_torch.ops import lowprec, mirror_uvw
+    from ska_sdp_tpu_torch.ops.search import find_closest
+
+    def n_differ(a, b) -> int:
+        """Elements whose 32-bit patterns differ (complex: per part)."""
+        if a.is_complex():
+            a, b = torch.view_as_real(a), torch.view_as_real(b)
+        a, b = a.cpu().contiguous(), b.contiguous()
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        return int((a != b).sum())
+
+    # ---- 36a. the codec and the quantizers, bit for bit ---------------------
+    pats = torch.arange(65536, dtype=torch.int32)
+    dec = lowprec.p16_to_f32(pats.to(dev))
+    back = lowprec.f32_to_p16(dec)
+    torch.cuda.synchronize()
+    bad_dec = n_differ(dec, lowprec.p16_to_f32(pats))
+    bad_back = int(((back.cpu() & 0xFFFF) != pats).sum())
+    x = torch.from_numpy(lowprec_sample(1 << 22, 36))
+    bad_enc = n_differ(lowprec.f32_to_p16(x.to(dev)), lowprec.f32_to_p16(x))
+    print(f"posit16 on the card: 65,536 patterns decoded, {bad_dec} differ "
+          f"from the CPU's bits; encoded back, {bad_back} differ from the "
+          f"pattern; {x.numel():,} sampled float32s (zeros, subnormals, "
+          f"±inf, NaNs, raw bit patterns) encoded, {bad_enc} differ from "
+          f"the CPU's (bound 0 each)")
+    if bad_dec or bad_back or bad_enc:
+        raise AssertionError("the posit16 codec on the card is not the "
+                             "CPU's bit for bit")
+    c = torch.complex(x, x.flip(0))
+    for name in FORMATS:
+        q = lowprec.QUANTIZERS[name]
+        bad = n_differ(q(c.to(dev)), q(c))
+        print(f"  quantizer {name} on {c.numel():,} complex64 values: "
+              f"{bad} parts differ from the CPU's bits (bound 0)")
+        if bad:
+            raise AssertionError(f"{name} on the card differs from the CPU")
+    e4 = lowprec.quantize_f8(torch.tensor([464.0, 465.0, -500.0,
+                                           float("inf")], device=dev))
+    print(f"  e4m3 overflow on the card: 464 -> {e4[0].item()}, 465, -500, "
+          f"inf -> {e4[1:].tolist()}")
+    if e4[0].item() != 448.0 or not torch.isnan(e4[1:]).all():
+        raise AssertionError("e4m3 overflow is not the reference's")
+
+    # ---- 36b. the quantization study at the bank benchmark's shape ---------
+    b = bench_records()
+    bank, centers, uvw, vis = (torch.as_tensor(b[k], device=dev) for k in
+                               ("bank", "centers", "uvw", "vis"))
+    uvw1, vis1 = mirror_uvw(uvw, vis)
+    wbin = find_closest(centers, uvw1[:, 2])
+    p = uvw1 / LAM
+    shape = tuple(b["grid"].shape)
+
+    def study():
+        return lowprec.gridding_quantization_error(bank, p, wbin, vis1,
+                                                   shape, formats=FORMATS)
+
+    calls = []
+    wproj.reset_launch_count()
+    with spy(wproj, "wproj_gridder", calls):
+        errs = study()
+        torch.cuda.synchronize()
+    launches = wproj.launch_count(wproj.GRID_KERNEL)
+    t = wall_ms(torch, study, reps=3)
+    print(f"quantization study (gridding_quantization_error, {p.shape[0]} "
+          f"records, NW=32, QPX=8, 15², {shape[0]}²): rel RMS grid error "
+          + ", ".join(f"{k} {v:.4e}" for k, v in errs.items())
+          + f"; wproj_grid launches {launches} (expected 5); {t:.3f} ms "
+          f"(median of 3) [{card}]")
+    if launches != 1 + len(FORMATS) or len(calls) != launches:
+        raise AssertionError(f"quantization study: {launches} launches")
+    if not all(np.isfinite(v) for v in errs.values()):
+        raise AssertionError(f"quantization study errors: {errs}")
+    return [scatter_entry(torch, card, f"quantization study {name}", call,
+                          launches)
+            for name, call in zip(FORMATS, calls[1:])]
+
+
+def corrected_image(torch, grid, S):
+    """The centred inverse FFT of a grid divided by IDG's fine taper at
+    subgrid ``S`` (numpy, complex128)."""
+    from ska_sdp_tpu_torch.ops import ifft_centered
+    from ska_sdp_tpu_torch.ops.idg import kaiser_taper, taper_fine
+
+    n = grid.shape[0]
+    tf = taper_fine(n, S, kaiser_taper(S, BETA, device=grid.device))
+    img = ifft_centered(grid.to(torch.complex128)) / torch.outer(tf, tf)
+    return img.cpu().numpy()
+
+
+def cross_method_phase(torch, dev, card, vd, obs):
+    """Phase 37: IDG against the bank scatter and IDG-AW against the AW
+    scatter, the scatters fed with the tapered bank."""
+    from ska_sdp_tpu_torch import kernels
+    from ska_sdp_tpu_torch.config import KernelOptions
+    from ska_sdp_tpu_torch.kernels import aw_fused, wproj
+    from ska_sdp_tpu_torch.kernels import idg_aw_stream as stream
+    from ska_sdp_tpu_torch.models import dataset as ds
+    from ska_sdp_tpu_torch.ops.idg import tapered_w_bank
+    from ska_sdp_tpu_torch.ops.idg_aw import aw_screens_host
+    from ska_sdp_tpu_torch.ops.search import find_closest
+
+    opts = KernelOptions(qpx=8, npix_ff=256, npix_kern=SUPPORT)
+    entries = []
+
+    def lattice(p, n):
+        """uv snapped to the qpx=8 oversampling lattice of an n² grid."""
+        return torch.cat([torch.round(p[:, :2] * (8 * n)) / (8 * n),
+                          p[:, 2:]], 1)
+
+    def compare(label, g_idg, g_ref, nd, counts):
+        err = rel_l2(crop75(corrected_image(torch, g_idg, SUBGRID)),
+                     crop75(corrected_image(torch, g_ref, SUBGRID)))
+        print(f"  {label}: taper-corrected images rel-L2 {err:.3e} over the "
+              f"central 75% (bound {CROSS_TOL}); dropped {nd}; launches "
+              + ", ".join(f"{k} {v}" for k, v in counts.items()))
+        if nd != 0 or any(v != 1 for v in counts.values()):
+            raise AssertionError(f"{label}: dropped {nd}, launches {counts}")
+        if not err <= CROSS_TOL:
+            raise AssertionError(f"{label}: rel-L2 {err}")
+
+    # ---- 37a. IDG against the bank scatter on the main path ---------------
+    centers, _ = w_bank_inputs(torch, obs, dev)
+    cent = torch.as_tensor(centers, device=dev)
+    bank_t = tapered_w_bank(THETA, cent, opts, BETA, SUBGRID,
+                            device=dev).to(torch.complex64)
+    uvw, f, vis = ds.idg_inputs(vd, device=dev)
+    g = ds.idg_grid_inputs(uvw, f, vis, theta=THETA, lam=LAM)
+    p = lattice(g.p, g.grid_shape[0])
+    wbin = find_closest(cent.float(), g.w)
+    w_b = cent.float()[wbin.long()]
+    calls_w, calls_i = [], []
+    wproj.reset_launch_count()
+    stream.reset_launch_count()
+    with spy(wproj, "wproj_gridder", calls_w), \
+            spy(stream, "idg_aw_grid_from_records_stream", calls_i):
+        g_bank = wproj.wproj_gridder(bank_t, g.grid_shape, p, wbin, g.vis)
+        g_idg, nd = kernels.idg_gridder(g.grid_shape, p, w_b, g.vis,
+                                        theta=THETA, subgrid=SUBGRID,
+                                        taper_beta=BETA)
+        torch.cuda.synchronize()
+    counts = {"wproj_grid": wproj.launch_count(wproj.GRID_KERNEL),
+              "idg_grid": stream.launch_count(stream.GRID_KERNEL)}
+    print(f"cross-method IDG (S={SUBGRID}, β={BETA}) against the bank "
+          f"scatter on tapered_w_bank ({len(centers)} planes, qpx=8, 15²), "
+          f"phase 4's {g.p.shape[0]} records on the qpx=8 lattice, w at its "
+          f"plane [{card}]:")
+    compare("IDG vs tapered bank scatter", g_idg, g_bank, int(nd), counts)
+    entries.append(scatter_entry(torch, card, "tapered bank",
+                                 calls_w[0], counts["wproj_grid"]))
+    entries.append(stream_grid_entry(torch, card, "cross-method IDG",
+                                     calls_i[0], counts["idg_grid"],
+                                     g.p.shape[0]))
+    del g, g_bank, g_idg, calls_w, calls_i, bank_t
+
+    # ---- 37b. IDG-AW against the AW scatter on the track shape ------------
+    t = aw_track_inputs()
+    rng = np.random.default_rng(37)
+    ak = np.zeros((t.nant, SUPPORT, SUPPORT), np.complex128)
+    c = SUPPORT // 2
+    ak[:, c, c] = 1.0
+    ak[:, c - 1:c + 2, c - 1:c + 2] += 0.05 * (
+        rng.standard_normal((t.nant, 3, 3))
+        + 1j * rng.standard_normal((t.nant, 3, 3)))
+    n = int(round(THETA * LAM))
+    shape = (n, n)
+    uvw_t, f_t, vis_t = ds.idg_inputs(t.vd, device=dev)
+    p_t = lattice(uvw_t / LAM, n).float()
+    w_t = uvw_t[:, 2].float()
+    cent_t = torch.linspace(float(w_t.min()), float(w_t.max()), 32,
+                            dtype=torch.float64, device=dev)
+    wbin_t = find_closest(cent_t.float(), w_t)
+    a1 = torch.as_tensor(t.a1.astype(np.int32), device=dev)
+    a2 = torch.as_tensor(t.a2.astype(np.int32), device=dev)
+    bank_c = torch.conj(tapered_w_bank(THETA, cent_t, opts, BETA, SUBGRID,
+                                       device=dev)).to(torch.complex64)
+    scr = torch.as_tensor(aw_screens_host(ak, SUBGRID), dtype=torch.complex64,
+                          device=dev)
+    ak64 = torch.as_tensor(ak, dtype=torch.complex64, device=dev)
+    mr = ds._aw_run_bound(t.a1, t.a2, t.n)
+    calls_a, calls_i = [], []
+    aw_fused.reset_launch_count()
+    stream.reset_launch_count()
+    with spy(aw_fused, "aw_fused_grid", calls_a), \
+            spy(stream, "idg_aw_grid_from_records_stream", calls_i):
+        g_aw = kernels.aw_gridder(bank_c, ak64, torch.zeros(
+            shape, dtype=torch.complex64, device=dev), p_t, wbin_t, a1, a2,
+            vis_t)
+        g_idg, nd = kernels.idg_aw_gridder(
+            shape, p_t, a1, a2, cent_t.float()[wbin_t.long()], vis_t, scr,
+            theta=THETA, subgrid=SUBGRID, taper_beta=BETA, max_runs=mr)
+        torch.cuda.synchronize()
+    counts = {"aw_grid": aw_fused.launch_count(aw_fused.GRID_KERNEL),
+              "idg_grid": stream.launch_count(stream.GRID_KERNEL)}
+    print(f"cross-method IDG-AW (S={SUBGRID}, {t.nant} stations, near-delta "
+          f"15² A-kernels, max_runs {mr}) against the AW scatter on the "
+          f"conjugated tapered bank (32 planes over w in "
+          f"[{float(w_t.min()):.1f}, {float(w_t.max()):.1f}] λ), the track "
+          f"shape's {t.n} records on the qpx=8 lattice [{card}]:")
+    compare("IDG-AW vs AW scatter", g_idg, g_aw, int(nd), counts)
+    entries.append(aw_entry(torch, card, "cross-method AW", calls_a[0],
+                            counts["aw_grid"]))
+    entries.append(stream_grid_entry(torch, card, "cross-method IDG-AW",
+                                     calls_i[0], counts["idg_grid"], t.n))
+    return entries
+
+
+def hdf5_phase(torch, dev, card, vd, obs):
+    """Phase 38: the CLI's ``--mode idg`` file entry on the card through
+    the native HDF5 backend, where the card's machine has an HDF5 1.10
+    runtime."""
+    import shutil
+    import tempfile
+
+    from ska_sdp_tpu_torch import cli
+    from ska_sdp_tpu_torch.io import h5, native_backend, schema
+    from ska_sdp_tpu_torch.io.native import build
+    from ska_sdp_tpu_torch.io.synthetic import write_vis_file
+    from ska_sdp_tpu_torch.kernels import idg_aw_stream as stream
+    from ska_sdp_tpu_torch.models import dataset as ds
+
+    rt = build.find_hdf5()
+    if rt.path is None:
+        print(f"HDF5 on the card: not run, {build.describe(rt)}")
+        return []
+    t0 = time.perf_counter()
+    native_backend.ensure_loaded()
+    print(f"HDF5 on the card: {build.describe(rt)}; native library built "
+          f"and loaded in {time.perf_counter() - t0:.1f} s")
+    work = tempfile.mkdtemp(dir=os.path.join(HERE, "ska_sdp_tpu_torch",
+                                             "io", "native", "build"))
+    saved = os.environ.get("SKA_SDP_TPU_H5_BACKEND")
+    os.environ["SKA_SDP_TPU_H5_BACKEND"] = "native"
+    try:
+        if h5.backend_name() != "native":
+            raise AssertionError("the façade did not select the native "
+                                 "backend")
+        t0 = time.perf_counter()
+        write_vis_file(os.path.join(work, "vis.h5"), obs)
+        t_write = (time.perf_counter() - t0) * 1e3
+        out = os.path.join(work, "img.h5")
+        calls, log = [], io.StringIO()
+        stream.reset_launch_count()
+        with spy(stream, "idg_aw_grid_from_records_stream", calls), \
+                contextlib.redirect_stdout(log):
+            rc = cli.main(["--mode", "idg", "-i", work, "--all", "--theta",
+                           str(THETA), "--lam", str(LAM), "-o", out,
+                           "-dphases", "--device", dev.type])
+        torch.cuda.synchronize()
+        launches = stream.launch_count(stream.GRID_KERNEL)
+        if rc != 0:
+            raise AssertionError(f"cli.main returned {rc}:\n"
+                                 f"{log.getvalue()}")
+        t0 = time.perf_counter()
+        img = h5.read_dataset(out, schema.IMG_DATASET)
+        t_read = (time.perf_counter() - t0) * 1e3
+    finally:
+        if saved is None:
+            os.environ.pop("SKA_SDP_TPU_H5_BACKEND")
+        else:
+            os.environ["SKA_SDP_TPU_H5_BACKEND"] = saved
+        shutil.rmtree(work)
+    n_vis = vd.vis.shape[0]
+    print(f"  io/synthetic wrote phase 4's observation ({n_vis} vis) in "
+          f"{t_write:.1f} ms; cli.main --mode idg -o -dphases on the card: "
+          f"idg_grid launches {launches}, its output:")
+    for line in log.getvalue().splitlines():
+        print(f"    {line}")
+    ref = ds.idg_image(vd, theta=THETA, lam=LAM, subgrid=SUBGRID,
+                       taper_beta=BETA, device=dev).image.cpu().numpy()
+    err = rel_l2(crop75(img), crop75(ref))
+    print(f"  /img read back ({img.shape}, {img.dtype}) in {t_read:.1f} ms: "
+          f"vs idg_image on the same arrays rel-L2 {err:.3e} over the "
+          f"central 75% (bound {FILE_TOL}) [{card}]")
+    if launches < 1 or not np.isfinite(img).all():
+        raise AssertionError(f"file entry: {launches} launches")
+    if not err <= FILE_TOL:
+        raise AssertionError(f"file entry image: {err}")
+    return [stream_grid_entry(torch, card, "--mode idg file entry", calls[0],
+                              launches, n_vis)]
 
 
 if __name__ == "__main__":

@@ -12,14 +12,18 @@ from .types import Precision, precision
 @dataclasses.dataclass(frozen=True)
 class KernelOptions:
     """Options of w-kernel synthesis (the reference's field meanings):
-    oversampling, far-field and kernel sizes, and the w-cache mode's bin
-    width.  The reference's pattern shift and 2×2 transform, which no
-    ported caller sets, are not ported."""
+    oversampling, far-field and kernel sizes, the w-cache mode's bin
+    width, and the pattern shift and 2×2 transform that
+    ``ops.wkernel.kernel_coordinates`` applies to the image-plane
+    coordinates (the defaults leave them as they are)."""
 
     qpx: int = 8                 # oversampling factor of the kernel
     npix_ff: int = 256           # far-field (image-plane) pixel count
     npix_kern: int = 15          # extracted convolution-kernel support
     wstep: int = 2000            # w-bin width of the w-kernel cache (λ)
+    pat_hor_shift: int = 0
+    pat_ver_shift: int = 0
+    pat_trans_mat: Optional[tuple] = None  # 2x2 row-major matrix or None
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,1 +1,2 @@
-"""HDF5 ingest/output (numpy + lazy h5py) and synthetic observations."""
+"""HDF5 ingest/output (the ``h5`` façade over the native C++ backend and
+the h5py backend) and synthetic observations."""

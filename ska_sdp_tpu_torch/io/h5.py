@@ -1,77 +1,84 @@
-"""HDF5 reads and writes (port of ``ska_sdp_tpu/io/h5.py`` with its h5py
-backend, the leading-axis slice read and shape query of the out-of-core
-ingest included).  ``h5py`` is imported inside each function, so importing
-this module needs no h5py; the reference's native C++ backend is not
-ported yet."""
+"""HDF5 I/O façade (port of ``ska_sdp_tpu/io/h5.py``): every file entry of
+the port reads and writes through these functions, served by one of two
+interchangeable backends with the same files:
+
+* ``native``: the C++ layer in ``io/native/`` bound with ctypes
+  (:mod:`.native_backend`), built at first use against the HDF5 1.10
+  runtime; it needs no h5py;
+* ``h5py``: :mod:`.h5py_backend`.
+
+``SKA_SDP_TPU_H5_BACKEND`` picks one: ``native``, ``h5py`` or ``auto``
+(the default): native where ``native/build.find_hdf5`` finds an HDF5 1.10
+runtime, else h5py.  The reference's auto also falls back to h5py when
+the native build fails; here a runtime that is found but does not build
+or load raises, so no failure hides behind the other backend.  The
+variable is read at each call; importing this module imports neither
+backend.
+"""
 
 from __future__ import annotations
 
 import os
 
-import numpy as np
+CHOICES = ("auto", "native", "h5py")
 
 
 def fix_ext(path: str) -> str:
     return path if path.endswith(".h5") else path + ".h5"
 
 
+def backend_name() -> str:
+    """The backend the next call takes: ``"native"`` or ``"h5py"``."""
+    choice = os.environ.get("SKA_SDP_TPU_H5_BACKEND", "auto")
+    if choice not in CHOICES:
+        raise ValueError(f"SKA_SDP_TPU_H5_BACKEND={choice!r}: expected one "
+                         f"of {', '.join(CHOICES)}")
+    if choice == "auto":
+        from .native.build import find_hdf5
+
+        return "h5py" if find_hdf5().path is None else "native"
+    return choice
+
+
+def _backend():
+    if backend_name() == "native":
+        from . import native_backend
+
+        return native_backend
+    from . import h5py_backend
+
+    return h5py_backend
+
+
 def create_file(path: str) -> None:
-    import h5py
-
-    with h5py.File(fix_ext(path), "w"):
-        pass
+    _backend().create_file(path)
 
 
-def read_dataset(path: str, name: str, dtype=None) -> np.ndarray:
-    import h5py
-
-    with h5py.File(fix_ext(path), "r") as f:
-        arr = np.asarray(f[name])
-    return arr if dtype is None else arr.astype(dtype)
+def read_dataset(path: str, name: str, dtype=None):
+    """A whole dataset; ``dtype`` converts (default: the stored dtype)."""
+    return _backend().read_dataset(path, name, dtype=dtype)
 
 
-def read_datasets_stacked(path: str, names, dtype=None) -> np.ndarray:
-    """Read same-shape datasets and stack them on a new leading axis."""
-    import h5py
+def read_dataset_slice(path: str, name: str, start: int, count: int,
+                       dtype=None):
+    """Rows ``[start, start + count)`` along the leading axis."""
+    return _backend().read_dataset_slice(path, name, start, count, dtype)
 
-    with h5py.File(fix_ext(path), "r") as f:
-        out = np.stack([np.asarray(f[n]) for n in names], axis=0)
-    return out if dtype is None else out.astype(dtype)
+
+def read_datasets_stacked(path: str, names, dtype=None):
+    """Same-shape datasets stacked on a new leading axis."""
+    return _backend().read_datasets_stacked(path, names, dtype=dtype)
+
+
+def write_dataset(path: str, name: str, data) -> None:
+    """Create (or overwrite) a dataset, creating parent groups as needed."""
+    _backend().write_dataset(path, name, data)
 
 
 def list_group(path: str, group: str) -> list[str]:
     """Member names of an HDF5 group."""
-    import h5py
-
-    with h5py.File(fix_ext(path), "r") as f:
-        return list(f[group].keys())
-
-
-def write_dataset(path: str, name: str, data: np.ndarray) -> None:
-    """Create (or overwrite) a dataset, creating parent groups as needed."""
-    import h5py
-
-    path = fix_ext(path)
-    mode = "a" if os.path.exists(path) else "w"
-    with h5py.File(path, mode) as f:
-        if name in f:
-            del f[name]
-        f.create_dataset(name, data=np.ascontiguousarray(data))
-
-
-def read_dataset_slice(path: str, name: str, start: int, count: int,
-                       dtype=None) -> np.ndarray:
-    """Rows ``[start, start + count)`` of a dataset along its leading
-    axis."""
-    import h5py
-
-    with h5py.File(fix_ext(path), "r") as f:
-        arr = np.asarray(f[name][start:start + count])
-    return arr if dtype is None else arr.astype(dtype)
+    return _backend().list_group(path, group)
 
 
 def dataset_shape(path: str, name: str) -> tuple[int, ...]:
-    import h5py
-
-    with h5py.File(fix_ext(path), "r") as f:
-        return tuple(f[name].shape)
+    return _backend().dataset_shape(path, name)

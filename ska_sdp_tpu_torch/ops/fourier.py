@@ -47,3 +47,19 @@ def next_pow2(x: int) -> int:
     while p < x:
         p *= 2
     return p
+
+
+def fft_pow2(img: torch.Tensor) -> torch.Tensor:
+    """Forward centred FFT through a zero pad to the next power of two,
+    cropped back to the input's size (the reference's padded ``fft``);
+    :func:`fft_centered` is the production transform."""
+    n = img.shape[-1]
+    return extract_mid(fft_centered(pad_mid(img, next_pow2(n))), n)
+
+
+def ifft_pow2(grid: torch.Tensor) -> torch.Tensor:
+    """The inverse counterpart of :func:`fft_pow2`: pad to the next power
+    of two, centred inverse FFT, crop (the production inverse,
+    :func:`ifft_centered`, does not pad)."""
+    n = grid.shape[-1]
+    return extract_mid(ifft_centered(pad_mid(grid, next_pow2(n))), n)

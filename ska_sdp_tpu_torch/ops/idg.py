@@ -1,6 +1,7 @@
 """Image-domain gridding helpers (port of ``ska_sdp_tpu/ops/idg.py``): the
 Kaiser subgrid taper, its fine-grid divisor, the padded-FOV plan (both
-directions) and the centred DFT matrix.
+directions), the centred DFT matrix, and the tapered w-kernel bank whose
+exact scatter is IDG's operator.
 
 IDG multiplies every subgrid image by a separable taper ``t(l)·t(m)`` and
 divides the final dirty image by the taper's band-limited interpolation
@@ -13,6 +14,10 @@ from __future__ import annotations
 import math
 
 import torch
+
+from ..config import KernelOptions
+from .fourier import ifft_centered, pad_mid
+from .wkernel import extract_oversampled, kernel_coordinates, w_kernel_function
 
 
 def kaiser_taper(S: int, beta: float, dtype=torch.float32, device=None):
@@ -90,3 +95,28 @@ def _dft_matrix(S: int, dtype=torch.complex64, device=None):
     k = torch.arange(S, dtype=ftype, device=device) - S // 2
     ph = -2.0 * math.pi * torch.outer(k, k) / S
     return torch.polar(torch.ones_like(ph), ph).to(dtype)
+
+
+def tapered_w_bank(theta: float, w_centers, opts: KernelOptions,
+                   taper_beta: float, subgrid: int, dtype=torch.float64,
+                   device=None) -> torch.Tensor:
+    """Conjugated oversampled bank ``[nw, qpx, qpx, s, s]`` of the tapered
+    screen ``t(l)·t(m)·e^{2πi·w·n(l, m)}``: the bank whose exact scatter
+    is IDG's effective kernel at the same β (``ops.wkernel.w_kernel_bank``'s
+    pipeline with the Kaiser taper of l/θ multiplied into the far-field
+    screen).  ``subgrid`` names the IDG subgrid the bank stands beside, as
+    in the reference's signature: the analytic window depends on l/θ
+    alone, so the bank is the same at every S.  Built on ``device`` in
+    ``dtype``'s precision."""
+    l, m = kernel_coordinates(opts.npix_ff, theta, opts, dtype=dtype,
+                              device=device)
+    ff = w_kernel_function(l, m, torch.as_tensor(w_centers, device=device))
+    x = l[0] / theta * 2.0                       # in [-1, 1)
+    t1 = torch.special.i0(taper_beta * torch.sqrt(
+        torch.clamp(1.0 - x * x, 0.0, 1.0)))
+    t1 = t1 / torch.special.i0(torch.tensor(taper_beta, dtype=torch.float64,
+                                            device=device))
+    ff = ff * (t1[None, :] * t1[:, None]).to(ff.dtype)
+    af = ifft_centered(pad_mid(ff, opts.npix_ff * opts.qpx))
+    return torch.conj(extract_oversampled(af, opts.qpx, opts.npix_kern)
+                      ).resolve_conj()

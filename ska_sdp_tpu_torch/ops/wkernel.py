@@ -1,7 +1,8 @@
 """w-kernel synthesis: phase screen → oversampled gridding kernel (port of
 ``ska_sdp_tpu/ops/wkernel.py``).
 
-  ``kernel_coordinates``  image-plane (l, m) grids
+  ``kernel_coordinates``  image-plane (l, m) grids, with the options'
+                          pattern transform and shift
   ``w_kernel_function``   far-field screen e^{2πi·w·(1 − √(1 − l² − m²))}
   ``extract_oversampled`` the qpx×qpx oversampled taps, × qpx²
   ``w_kernel``            screen → zero-pad ×qpx → centred iFFT → taps
@@ -23,13 +24,26 @@ from .fourier import ifft_centered, pad_mid
 _COMPLEX = {torch.float32: torch.complex64, torch.float64: torch.complex128}
 
 
-def kernel_coordinates(n: int, theta: float, dtype=torch.float64,
-                       device=None):
+def kernel_coordinates(n: int, theta: float,
+                       opts: KernelOptions | None = None,
+                       dtype=torch.float64, device=None):
     """Image-plane ``(l, m)`` grids ``[n, n]`` scaled by ``theta``: ``l``
-    varies along x (the last axis), ``m`` along y."""
+    varies along x (the last axis), ``m`` along y.  ``opts``' 2×2
+    row-major ``pat_trans_mat`` T, when set, maps them to
+    ``(T00·l + T10·m, T01·l + T11·m)``; then ``pat_hor_shift`` is added to
+    l and ``pat_ver_shift`` to m."""
     base = (torch.arange(n, dtype=dtype, device=device) - n // 2) / n
     l = base[None, :].expand(n, n) * theta
     m = base[:, None].expand(n, n) * theta
+    if opts is None:
+        return l, m
+    if opts.pat_trans_mat is not None:
+        t = torch.as_tensor(opts.pat_trans_mat, dtype=dtype,
+                            device=device).reshape(2, 2)
+        l, m = t[0, 0] * l + t[1, 0] * m, t[0, 1] * l + t[1, 1] * m
+    if opts.pat_hor_shift or opts.pat_ver_shift:
+        l = l + opts.pat_hor_shift
+        m = m + opts.pat_ver_shift
     return l, m
 
 
@@ -63,7 +77,7 @@ def w_kernel(theta: float, w, opts: KernelOptions, dtype=torch.float64,
     The screen on an ``npix_ff``² far field is zero-padded to
     ``npix_ff·qpx``, inverse-transformed (centred) and sampled at the
     oversampled tap positions."""
-    l, m = kernel_coordinates(opts.npix_ff, theta, dtype=dtype,
+    l, m = kernel_coordinates(opts.npix_ff, theta, opts, dtype=dtype,
                               device=device)
     ff = w_kernel_function(l, m, w)
     af = ifft_centered(pad_mid(ff, opts.npix_ff * opts.qpx))

@@ -80,7 +80,7 @@ def load(path: str, n_grid: int, total: int,
             return None
         try:
             got_fpr = int(h5.read_dataset(path, FPR)[0])
-        except KeyError:
+        except (KeyError, OSError):  # h5py's and the native layer's miss
             got_fpr = None          # a file written before fingerprints
         if got_fpr is not None and got_fpr != fpr:
             log.warning("checkpoint %s rejected: config fingerprint %s != %s "
