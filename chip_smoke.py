@@ -443,7 +443,7 @@ def track_records(nbl, ntime, nchan, n_grid, rng):
     return p, ut.shape
 
 
-# ---- the main paths' inputs (shared with scripts/profile_torch.py) --------
+# ---- the main paths' inputs ------------------------------------------------
 def main_observation():
     """Phase 4's synthetic SKA1-Low observation: ``(obs dict, VisData)``."""
     from ska_sdp_tpu_torch.io.synthetic import (SyntheticConfig,

@@ -328,9 +328,11 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     common = dict(n=cfg.n_vis, outfile=args.output, config=cfg, device=device)
     idg_opts = dict(subgrid=args.subgrid, fov_pad=args.fov_pad)
-    # None (not False) keeps the SKA_SDP_TPU_DUMP_PHASES fallback
+    # None (not False) keeps the SKA_SDP_TPU_DUMP_PHASES fallback; the
+    # phases wait for the card where --metrics reports them
     timer = PhaseTimer(enabled=(args.dump_phases or args.device_phases)
-                       or None, trace_dir=args.trace_dir)
+                       or None, trace_dir=args.trace_dir,
+                       wait=bool(args.metrics) or None)
     common["timer"] = timer
     if args.distributed:
         try:

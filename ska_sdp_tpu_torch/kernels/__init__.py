@@ -35,6 +35,7 @@ import sys
 import torch
 
 from ..ops.idg_aw import auto_fit_margin
+from ..utils.timing import COUNTERS
 from .idg_aw_records import STREAM_SUBGRIDS
 from .aw_fused import aw_gridder
 from .idg_aw_stream import (_check_subgrid, idg_aw_degridder_stream,
@@ -54,24 +55,25 @@ __all__ = [
     "wproj_gridder",
 ]
 
-_drop_counts: dict[str, int] = {}
 _warned: set[str] = set()
 
 
 def drop_counters() -> dict[str, int]:
     """Records dropped by each gridder since process start (or reset)."""
-    return dict(_drop_counts)
+    return COUNTERS.group("dropped/")
 
 
 def reset_drop_counters() -> None:
-    _drop_counts.clear()
+    COUNTERS.reset("dropped/")
     _warned.clear()
 
 
 def _note_drops(kind: str, n_dropped: int, reason: str) -> None:
+    """Count ``n_dropped`` under ``dropped/<kind>`` and warn once per
+    gridder."""
     if n_dropped <= 0:
         return
-    _drop_counts[kind] = _drop_counts.get(kind, 0) + n_dropped
+    COUNTERS.add(f"dropped/{kind}", n_dropped)
     if kind not in _warned:
         _warned.add(kind)
         print(f"warning: {kind}: {n_dropped} in-bounds records dropped — "

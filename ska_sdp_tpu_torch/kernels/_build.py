@@ -18,6 +18,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+from ..utils.timing import span
+
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
@@ -52,24 +54,27 @@ def source_digest(name: str) -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """Compile ``csrc/<name>.cu`` if needed and load it (cached)."""
+    """Compile ``csrc/<name>.cu`` if needed and load it (cached), inside
+    span ``sdp.build.<name>``."""
     if name in _loaded:
         return _loaded[name]
-    src = CSRC / f"{name}.cu"
-    lib_path = BUILD_DIR / f"lib{name}_{source_digest(name)}.so"
-    if not lib_path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, str(src)],
-            capture_output=True, text=True)
-        build_log[name] = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed for {src}:\n{build_log[name]}")
-        os.replace(tmp, lib_path)     # atomic: concurrent builders agree
-    lib = ctypes.CDLL(str(lib_path))
+    with span(f"sdp.build.{name}", host_only=True):
+        src = CSRC / f"{name}.cu"
+        lib_path = BUILD_DIR / f"lib{name}_{source_digest(name)}.so"
+        if not lib_path.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            proc = subprocess.run(
+                [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, str(src)],
+                capture_output=True, text=True)
+            build_log[name] = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                os.unlink(tmp)
+                raise RuntimeError(
+                    f"nvcc failed for {src}:\n{build_log[name]}")
+            os.replace(tmp, lib_path)     # atomic: concurrent builders agree
+        lib = ctypes.CDLL(str(lib_path))
     _loaded[name] = lib
     return lib
 

@@ -53,24 +53,15 @@ from ..ops.convolution import (_sandwich, _synthesis_mat, akernel_spectra,
 from ..ops.coords import frac_coords
 from ..ops.fourier import next_pow2
 from ..ops.gridding import DEFAULT_CHUNK, _patch_cells, convgrid_aw
+from ..utils.timing import launch_counters, launched, span
 from ._build import bind
 from ._plan import binned_items
 
 GRID_KERNEL = "aw_grid"
 MAX_SUPPORT = 32      # the kernel's envelope: m = next_pow2(2s − 1) ≤ 64
 WINDOW = 32           # sorted records a warp of the kernel takes
-_launches = {GRID_KERNEL: 0}
-
-
-def launch_count(kernel: str = GRID_KERNEL) -> int:
-    """Launches of the CUDA kernel since the last reset."""
-    return _launches[kernel]
-
-
-def reset_launch_count() -> None:
-    """Set every kernel's launch count to 0."""
-    for k in _launches:
-        _launches[k] = 0
+# launches of the CUDA kernel since the last reset, and the reset
+launch_count, reset_launch_count = launch_counters(GRID_KERNEL)
 
 
 class AWRecords(NamedTuple):
@@ -230,7 +221,7 @@ def _launch(pair_tab, w_spec, records: AWRecords, vis, grid, n_valid=None):
     if rc != 0:
         raise RuntimeError(f"{GRID_KERNEL} launch failed: "
                            f"{err(rc).decode()} ({rc})")
-    _launches[GRID_KERNEL] += 1
+    launched(GRID_KERNEL)
     return grid
 
 
@@ -243,21 +234,22 @@ def aw_fused_grid(pair_tab: torch.Tensor, w_spec: torch.Tensor,
     a copy of ``init``), which adds the count of records it placed to the
     one-element int32 CUDA tensor ``n_valid`` when given; CPU tensors take
     :func:`aw_fused_plain`."""
-    if vis.is_cuda:
-        out = (torch.zeros(grid_shape, dtype=torch.complex64,
-                           device=vis.device) if init is None
-               else init.resolve_conj().clone(
-                   memory_format=torch.contiguous_format))
-        _check(pair_tab, w_spec, records, vis, out)
-        if n_valid is not None and (n_valid.dtype != torch.int32
-                                    or n_valid.device != vis.device
-                                    or n_valid.numel() != 1):
-            raise ValueError("n_valid must be one int32 on the kernel's "
-                             "device")
-        return _launch(pair_tab, w_spec, records, vis, out, n_valid)
-    if vis.device.type == "cpu":
-        out = aw_fused_plain(pair_tab, w_spec, records, vis, grid_shape)
-        return out if init is None else init + out
+    with span("sdp.kernel.aw_grid"):
+        if vis.is_cuda:
+            out = (torch.zeros(grid_shape, dtype=torch.complex64,
+                               device=vis.device) if init is None
+                   else init.resolve_conj().clone(
+                       memory_format=torch.contiguous_format))
+            _check(pair_tab, w_spec, records, vis, out)
+            if n_valid is not None and (n_valid.dtype != torch.int32
+                                        or n_valid.device != vis.device
+                                        or n_valid.numel() != 1):
+                raise ValueError("n_valid must be one int32 on the kernel's "
+                                 "device")
+            return _launch(pair_tab, w_spec, records, vis, out, n_valid)
+        if vis.device.type == "cpu":
+            out = aw_fused_plain(pair_tab, w_spec, records, vis, grid_shape)
+            return out if init is None else init + out
     raise ValueError(f"no AW gridder for device {vis.device}")
 
 
@@ -292,8 +284,9 @@ def aw_gridder(wkerns: torch.Tensor, akerns: torch.Tensor, guv: torch.Tensor,
     :func:`ops.gridding.convgrid_aw` in chunks of ``chunk``, the route the
     reference takes off the TPU."""
     if vis.is_cuda:
-        rec, pair_tab, w_spec = aw_records_tables(
-            wkerns, akerns, tuple(guv.shape), p, wbin, a1, a2)
+        with span("sdp.device_prep"):
+            rec, pair_tab, w_spec = aw_records_tables(
+                wkerns, akerns, tuple(guv.shape), p, wbin, a1, a2)
         return aw_fused_grid(pair_tab, w_spec, rec, vis, tuple(guv.shape),
                              init=guv)
     if vis.device.type == "cpu":

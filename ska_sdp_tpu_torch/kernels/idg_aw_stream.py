@@ -45,25 +45,16 @@ import torch
 
 from ..ops.idg import _dft_matrix, kaiser_taper
 from ..ops.idg_aw import PAIR_SHIFT
+from ..utils.timing import launch_counters, launched, span
 from ._build import bind
 from .idg_aw_records import idg_aw_degrid_records, idg_aw_run_records
 
 GRID_KERNEL = "idg_grid_stream"
 DEGRID_KERNEL = "idg_degrid_stream"
 MAX_SUBGRID = 128        # the kernels' largest instance
-_launches = {GRID_KERNEL: 0, DEGRID_KERNEL: 0}
-
-
-def launch_count(kernel: str = GRID_KERNEL) -> int:
-    """Launches of a CUDA kernel (:data:`GRID_KERNEL` or
-    :data:`DEGRID_KERNEL`) since the last reset."""
-    return _launches[kernel]
-
-
-def reset_launch_count() -> None:
-    """Set every kernel's launch count to 0."""
-    for k in _launches:
-        _launches[k] = 0
+# launches of a CUDA kernel since the last reset, and the reset
+launch_count, reset_launch_count = launch_counters(GRID_KERNEL,
+                                                   DEGRID_KERNEL)
 
 
 def _dft_factor64(S: int, taper_beta: float, device=None):
@@ -410,7 +401,7 @@ def _grid_from_records_cuda(recs, starts, ends, y0, x0, ia1, ia2, screens,
     if rc != 0:
         raise RuntimeError(f"{GRID_KERNEL} launch failed: "
                            f"{err(rc).decode()} ({rc})")
-    _launches[GRID_KERNEL] += 1
+    launched(GRID_KERNEL)
     return out, order[-1]
 
 
@@ -453,7 +444,7 @@ def _degrid_from_records_cuda(recs, starts, ends, y0, x0, ia1, ia2, order_s,
     if rc != 0:
         raise RuntimeError(f"{DEGRID_KERNEL} launch failed: "
                            f"{err(rc).decode()} ({rc})")
-    _launches[DEGRID_KERNEL] += 1
+    launched(DEGRID_KERNEL)
     return out
 
 
@@ -471,14 +462,15 @@ def idg_aw_grid_from_records_stream(recs, starts, ends, y0, x0, ia1, ia2,
     S = subgrid
     kw = dict(grid_shape=grid_shape, theta=theta, subgrid=S,
               taper_beta=taper_beta)
-    if recs.is_cuda:
-        g, _ = _grid_from_records_cuda(recs, starts, ends, y0, x0, ia1, ia2,
-                                       screens, **kw)
-    elif recs.device.type == "cpu":
-        g = grid_from_records_plain(recs, starts, ends, y0, x0, ia1, ia2,
-                                    screens, **kw)
-    else:
-        raise ValueError(f"no gridder for device {recs.device}")
+    with span("sdp.kernel.idg_grid"):
+        if recs.is_cuda:
+            g, _ = _grid_from_records_cuda(recs, starts, ends, y0, x0, ia1,
+                                           ia2, screens, **kw)
+        elif recs.device.type == "cpu":
+            g = grid_from_records_plain(recs, starts, ends, y0, x0, ia1,
+                                        ia2, screens, **kw)
+        else:
+            raise ValueError(f"no gridder for device {recs.device}")
     return g[S:S + N, S:S + Nx]
 
 
@@ -488,10 +480,12 @@ def idg_aw_gridder_stream(grid_shape, p, a1, a2, w, vis, screens, *,
                           fit_margin: int = 0, ordered: bool = False):
     """Streamed IDG(-AW) gridding end to end (prep + gridder) on complex
     visibilities; returns ``(guv [N, Nx] complex64, n_dropped)``."""
-    recs, starts, ends, y0, x0, ia1, ia2, n_dropped, _ = idg_aw_run_records(
-        grid_shape, p, a1, a2, w, vis.real, vis.imag, subgrid=subgrid,
-        support=support, max_runs=max_runs, fit_margin=fit_margin,
-        ordered=ordered, nant=screens.shape[0])
+    with span("sdp.device_prep"):
+        (recs, starts, ends, y0, x0, ia1, ia2, n_dropped,
+         _) = idg_aw_run_records(
+            grid_shape, p, a1, a2, w, vis.real, vis.imag, subgrid=subgrid,
+            support=support, max_runs=max_runs, fit_margin=fit_margin,
+            ordered=ordered, nant=screens.shape[0])
     guv = idg_aw_grid_from_records_stream(
         recs, starts, ends, y0, x0, ia1, ia2, grid_shape,
         screens.to(torch.complex64).contiguous(), theta=theta,
@@ -511,16 +505,18 @@ def idg_aw_degrid_from_records_stream(recs, starts_ext, y0, x0, ia1, ia2,
     version.  ``screens`` is ``[nant, S, S]`` complex64, unconjugated.
     """
     kw = dict(theta=theta, subgrid=subgrid, taper_beta=taper_beta)
-    if recs.is_cuda:
-        n = recs.shape[1]
-        return _degrid_from_records_cuda(
-            recs, starts_ext[:-1], torch.clamp(starts_ext[1:], max=n), y0,
-            x0, ia1, ia2, order_s, screens,
-            grid=grid.to(torch.complex64).contiguous(), **kw)
-    if recs.device.type == "cpu":
-        return degrid_from_records_plain(recs, starts_ext, y0, x0, ia1, ia2,
-                                         order_s, grid, screens, **kw)
-    raise ValueError(f"no degridder for device {recs.device}")
+    with span("sdp.kernel.idg_degrid"):
+        if recs.is_cuda:
+            n = recs.shape[1]
+            return _degrid_from_records_cuda(
+                recs, starts_ext[:-1], torch.clamp(starts_ext[1:], max=n),
+                y0, x0, ia1, ia2, order_s, screens,
+                grid=grid.to(torch.complex64).contiguous(), **kw)
+        if recs.device.type == "cpu":
+            return degrid_from_records_plain(recs, starts_ext, y0, x0, ia1,
+                                             ia2, order_s, grid, screens,
+                                             **kw)
+        raise ValueError(f"no degridder for device {recs.device}")
 
 
 def idg_aw_degridder_stream(grid_shape, p, a1, a2, w, grid, screens, *,
@@ -533,9 +529,11 @@ def idg_aw_degridder_stream(grid_shape, p, a1, a2, w, grid, screens, *,
     if tuple(grid.shape) != tuple(grid_shape):
         raise ValueError(f"grid {tuple(grid.shape)} does not match "
                          f"grid_shape {tuple(grid_shape)}")
-    recs = idg_aw_degrid_records(grid_shape, p, a1, a2, w, subgrid=subgrid,
-                                 support=support, max_runs=max_runs,
-                                 fit_margin=fit_margin)
+    with span("sdp.device_prep"):
+        recs = idg_aw_degrid_records(grid_shape, p, a1, a2, w,
+                                     subgrid=subgrid, support=support,
+                                     max_runs=max_runs,
+                                     fit_margin=fit_margin)
     vis = idg_aw_degrid_from_records_stream(
         *recs[:7], grid, screens.to(torch.complex64).contiguous(),
         theta=theta, subgrid=subgrid, taper_beta=taper_beta)

@@ -48,25 +48,16 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.timing import launch_counters, launched, readback, span
 from . import idg_aw_stream as stream
 
 GRID_KERNEL = "idg_tile_grid"        # counts of the fixed-tile route's
 DEGRID_KERNEL = "idg_tile_degrid"    # launches of the streamed kernels
 MAX_SUBGRID = stream.MAX_SUBGRID
-_launches = {GRID_KERNEL: 0, DEGRID_KERNEL: 0}
-
-
-def launch_count(kernel: str = GRID_KERNEL) -> int:
-    """Launches of the streamed CUDA gridder (:data:`GRID_KERNEL`) or
-    degridder (:data:`DEGRID_KERNEL`) by this route since the last reset;
-    the streamed module's own counts rise with them."""
-    return _launches[kernel]
-
-
-def reset_launch_count() -> None:
-    """Set every kernel's launch count to 0."""
-    for k in _launches:
-        _launches[k] = 0
+# launches of the streamed CUDA gridder or degridder by this route since
+# the last reset, and the reset; the streamed module's counts rise with them
+launch_count, reset_launch_count = launch_counters(GRID_KERNEL,
+                                                   DEGRID_KERNEL)
 
 
 class TileGeometry(NamedTuple):
@@ -300,7 +291,7 @@ def _table(starts, grid_shape, subgrid: int) -> TileRuns:
 def _check_origins(starts, grid_shape, subgrid: int) -> None:
     """:func:`tile_runs`' check: one flag read back from the device."""
     bad = _origin_table(tuple(grid_shape), int(subgrid), starts.device)[1]
-    if bool(torch.any((starts[1:] > starts[:-1]) & bad)):
+    if readback(torch.any((starts[1:] > starts[:-1]) & bad), bool):
         raise ValueError("an occupied subgrid's origin lies outside the "
                          "padded grid: these are not the fixed-tile prep's "
                          "records for this grid")
@@ -350,13 +341,15 @@ def idg_grid_from_records(recs, starts, grid_shape, *, theta: float,
     if recs.is_cuda:
         # the kernel counts the runs it skips for leaving the grid: the
         # check reads that flag back, after the launch
-        gp, outside = stream._grid_from_records_cuda(*args, **kw)
-        _launches[GRID_KERNEL] += 1
-        if bool(outside):
+        with span("sdp.kernel.idg_grid"):
+            gp, outside = stream._grid_from_records_cuda(*args, **kw)
+        launched(GRID_KERNEL)
+        if readback(outside, bool):
             _check_origins(starts, grid_shape, subgrid)
     elif recs.device.type == "cpu":
         _check_origins(starts, grid_shape, subgrid)
-        gp = stream.grid_from_records_plain(*args, **kw)
+        with span("sdp.kernel.idg_grid"):
+            gp = stream.grid_from_records_plain(*args, **kw)
     else:
         raise ValueError(f"no gridder for device {recs.device}")
     N, Nx = grid_shape
@@ -382,7 +375,7 @@ def idg_degrid_from_records(recs, starts, order, grid, *, theta: float,
         _unit_screen(shape, subgrid, recs.device), theta=theta,
         subgrid=subgrid, taper_beta=taper_beta)
     if recs.is_cuda:
-        _launches[DEGRID_KERNEL] += 1
+        launched(DEGRID_KERNEL)
         _check_origins(starts, shape, subgrid)
     return v
 
@@ -394,8 +387,10 @@ def idg_gridder_tile(grid_shape, p, w, vis, *, theta: float,
     visibilities; returns the ``[N, Nx]`` complex64 grid.  Nothing in
     bounds is dropped.  The dirty image must be divided by the fine taper
     (``ops.idg.taper_fine``)."""
-    recs, starts = idg_bin_records(grid_shape, p, w, vis.real, vis.imag,
-                                   subgrid=subgrid, support=support)
+    with span("sdp.device_prep"):
+        recs, starts = idg_bin_records(grid_shape, p, w, vis.real,
+                                       vis.imag, subgrid=subgrid,
+                                       support=support)
     return idg_grid_from_records(recs, starts, grid_shape, theta=theta,
                                  subgrid=subgrid, taper_beta=taper_beta)
 
@@ -409,7 +404,9 @@ def idg_degrid_tile(grid_shape, p, w, grid, *, theta: float,
     if tuple(grid.shape) != tuple(grid_shape):
         raise ValueError(f"grid {tuple(grid.shape)} does not match "
                          f"grid_shape {tuple(grid_shape)}")
-    recs, starts, order, _ = prep_with_order(grid_shape, p, w,
-                                             subgrid=subgrid, support=support)
+    with span("sdp.device_prep"):
+        recs, starts, order, _ = prep_with_order(grid_shape, p, w,
+                                                 subgrid=subgrid,
+                                                 support=support)
     return idg_degrid_from_records(recs, starts, order, grid, theta=theta,
                                    subgrid=subgrid, taper_beta=taper_beta)

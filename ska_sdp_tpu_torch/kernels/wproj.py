@@ -37,6 +37,7 @@ import torch
 
 from ..ops.coords import frac_coords
 from ..ops.gridding import convgrid_wproj, degrid_wproj
+from ..utils.timing import launch_counters, launched, span
 from ._build import bind
 from ._plan import binned_items
 
@@ -45,19 +46,9 @@ DEGRID_KERNEL = "wproj_degrid"
 TILE = 32           # the scatter's output tile, T×T cells (csrc kTile)
 WINDOW = 256        # sorted (tile, record) entries a warp of the scatter takes
 GATHER_WINDOW = 512     # sorted records a block of the gather takes
-_launches = {GRID_KERNEL: 0, DEGRID_KERNEL: 0}
-
-
-def launch_count(kernel: str = GRID_KERNEL) -> int:
-    """Launches of a CUDA kernel (:data:`GRID_KERNEL` or
-    :data:`DEGRID_KERNEL`) since the last reset."""
-    return _launches[kernel]
-
-
-def reset_launch_count() -> None:
-    """Set every kernel's launch count to 0."""
-    for k in _launches:
-        _launches[k] = 0
+# launches of a CUDA kernel since the last reset, and the reset
+launch_count, reset_launch_count = launch_counters(GRID_KERNEL,
+                                                   DEGRID_KERNEL)
 
 
 def wproj_records(grid_shape, qpx: int, gh: int, gw: int, nk: int,
@@ -149,7 +140,7 @@ def _run(kernel: str, argtypes, *args) -> None:
     if rc != 0:
         raise RuntimeError(f"{kernel} launch failed: {err(rc).decode()} "
                            f"({rc})")
-    _launches[kernel] += 1
+    launched(kernel)
 
 
 @functools.lru_cache(maxsize=64)
@@ -234,17 +225,18 @@ def wproj_gridder(bank_conj: torch.Tensor, grid_shape, p: torch.Tensor,
     tensors take
     :func:`ops.gridding.convgrid_wproj` in chunks of ``chunk``.  One
     kernel serves every support."""
-    if vis.is_cuda:
-        out = (torch.zeros(grid_shape, dtype=torch.complex64,
-                           device=vis.device) if init is None
-               else init.resolve_conj().clone(
-                   memory_format=torch.contiguous_format))
-        _check(bank_conj, out, p, wbin, vis)
-        return _launch_grid(bank_conj, grid_shape, p, wbin, vis, out)
-    if vis.device.type == "cpu":
-        guv = (torch.zeros(grid_shape, dtype=vis.dtype) if init is None
-               else init)
-        return convgrid_wproj(bank_conj, guv, p, wbin, vis, chunk=chunk)
+    with span("sdp.kernel.wproj_grid"):
+        if vis.is_cuda:
+            out = (torch.zeros(grid_shape, dtype=torch.complex64,
+                               device=vis.device) if init is None
+                   else init.resolve_conj().clone(
+                       memory_format=torch.contiguous_format))
+            _check(bank_conj, out, p, wbin, vis)
+            return _launch_grid(bank_conj, grid_shape, p, wbin, vis, out)
+        if vis.device.type == "cpu":
+            guv = (torch.zeros(grid_shape, dtype=vis.dtype) if init is None
+                   else init)
+            return convgrid_wproj(bank_conj, guv, p, wbin, vis, chunk=chunk)
     raise ValueError(f"no w-projection gridder for device {vis.device}")
 
 
@@ -259,11 +251,12 @@ def wproj_degridder(bank: torch.Tensor, grid: torch.Tensor, p: torch.Tensor,
     from its region staged in shared memory (no atomics, the same result
     from run to run); CPU tensors take :func:`ops.gridding.degrid_wproj`
     in chunks of ``chunk``."""
-    if grid.is_cuda:
-        _check(bank, grid, p, wbin)
-        out = torch.empty((p.shape[0],), dtype=torch.complex64,
-                          device=grid.device)
-        return _launch_degrid(bank, grid, p, wbin, out)
-    if grid.device.type == "cpu":
-        return degrid_wproj(bank, grid, p, wbin, chunk=chunk)
+    with span("sdp.kernel.wproj_gather"):
+        if grid.is_cuda:
+            _check(bank, grid, p, wbin)
+            out = torch.empty((p.shape[0],), dtype=torch.complex64,
+                              device=grid.device)
+            return _launch_degrid(bank, grid, p, wbin, out)
+        if grid.device.type == "cpu":
+            return degrid_wproj(bank, grid, p, wbin, chunk=chunk)
     raise ValueError(f"no w-projection degridder for device {grid.device}")

@@ -81,7 +81,7 @@ from ..ops.idg import (fov_pad_finish, fov_pad_geometry, fov_pad_start,
 from ..ops.idg_aw import aw_screens_host
 from ..ops.search import find_closest
 from ..types import precision as _precision
-from ..utils.timing import PhaseTimer
+from ..utils.timing import PhaseTimer, add, readback, span
 from .imaging import ImagingResult, aw_imaging, do_imaging, mode_imgfn
 
 
@@ -158,13 +158,16 @@ def _idg_pipeline(uvw: torch.Tensor, f: torch.Tensor, vis: torch.Tensor, *,
     accurate inside ~75% of the image radius.  Returns ``(img, img.max(),
     n_dropped)`` as tensors.
     """
-    g = idg_grid_inputs(uvw, f, vis, theta=theta, lam=lam, fov_pad=fov_pad)
+    with span("sdp.device_prep"):
+        g = idg_grid_inputs(uvw, f, vis, theta=theta, lam=lam,
+                            fov_pad=fov_pad)
     guv, n_dropped = idg_gridder(
         g.grid_shape, g.p, g.w, g.vis, theta=g.theta, subgrid=subgrid,
         taper_beta=taper_beta)
-    img = _idg_finish(guv, g.n, g.grid_shape[0], g.crop_lo, subgrid,
-                      taper_beta, uvw.dtype)
-    return img, torch.max(img), n_dropped
+    with span("sdp.finish"):
+        img = _idg_finish(guv, g.n, g.grid_shape[0], g.crop_lo, subgrid,
+                          taper_beta, uvw.dtype)
+        return img, torch.max(img), n_dropped
 
 
 class GridInputs(NamedTuple):
@@ -201,11 +204,33 @@ def _idg_finish(guv: torch.Tensor, n: int, n_pad: int, crop_lo: int,
     return fov_pad_finish(img, n, n_pad, crop_lo)
 
 
+def to_device(x, device, *, np_dtype=None, dtype=None) -> torch.Tensor:
+    """``torch.as_tensor(x, dtype=dtype, device=device)``, after the host
+    cast ``np.ascontiguousarray(x, np_dtype)`` (span
+    ``sdp.host_prep.cast``) when ``np_dtype`` is given.  The bytes copied
+    from host memory to a card count in the open spans' ``h2d_bytes``; a
+    tensor already on a card, or one that stays on the host, counts 0.
+    The copy is from pageable memory."""
+    if np_dtype is not None:
+        with span("sdp.host_prep.cast", host_only=True):
+            x = np.ascontiguousarray(x, np_dtype)
+    t = torch.as_tensor(x, dtype=dtype, device=device)
+    if t.device.type != "cpu" and not (isinstance(x, torch.Tensor)
+                                       and x.device.type != "cpu"):
+        add("h2d_bytes", t.numel() * t.element_size())
+    return t
+
+
+def _entry(name: str, vis_data: VisData, n: Optional[int]):
+    """The root span ``sdp.<name>`` of an in-memory entry over the first
+    ``n`` records."""
+    return span(f"sdp.{name}", records=len(vis_data.uvw[:n]), h2d_bytes=0)
+
+
 def _uvw_freq(vis_data: VisData, n: Optional[int], prec, device):
     """``(uvw, f)`` tensors of the first ``n`` records on ``device``."""
-    uvw = torch.as_tensor(np.asarray(vis_data.uvw[:n], prec.np_real),
-                          device=device)
-    f = torch.tensor(vis_data.frequency, dtype=prec.real, device=device)
+    uvw = to_device(vis_data.uvw[:n], device, np_dtype=prec.np_real)
+    f = to_device(vis_data.frequency, device, dtype=prec.real)
     return uvw, f
 
 
@@ -214,8 +239,7 @@ def idg_inputs(vis_data: VisData, *, n: Optional[int] = None,
     """``(uvw, f, vis)`` tensors of the first ``n`` records on ``device``."""
     prec = _precision(precision)
     uvw, f = _uvw_freq(vis_data, n, prec, device)
-    vis = torch.as_tensor(np.asarray(vis_data.vis[:n], prec.np_complex),
-                          device=device)
+    vis = to_device(vis_data.vis[:n], device, np_dtype=prec.np_complex)
     return uvw, f, vis
 
 
@@ -230,14 +254,16 @@ def idg_image(vis_data: VisData, *, theta: float = 0.008,
     fixed-tile one elsewhere (S=32 with support 15 among them).  ``n``
     caps the record count.  Dropped records are counted in
     ``kernels.drop_counters()`` and warned about once."""
-    uvw, f, vis = idg_inputs(vis_data, n=n, precision=precision,
-                             device=device)
-    img, mx, n_dropped = _idg_pipeline(
-        uvw, f, vis, theta=theta, lam=lam, subgrid=subgrid,
-        taper_beta=taper_beta, fov_pad=fov_pad)
-    nd = int(n_dropped)
-    _note_drops("idg_gridder", nd, "unfit records or run-table overflow")
-    return IDGImage(img, float(mx), nd)
+    with _entry("idg_image", vis_data, n):
+        with span("sdp.host_prep"):
+            uvw, f, vis = idg_inputs(vis_data, n=n, precision=precision,
+                                     device=device)
+        img, mx, n_dropped = _idg_pipeline(
+            uvw, f, vis, theta=theta, lam=lam, subgrid=subgrid,
+            taper_beta=taper_beta, fov_pad=fov_pad)
+        nd = readback(n_dropped, int)
+        _note_drops("idg_gridder", nd, "unfit records or run-table overflow")
+        return IDGImage(img, readback(mx, float), nd)
 
 
 def _idg_staged(uvw: torch.Tensor, f: torch.Tensor, vis: torch.Tensor, *,
@@ -344,8 +370,9 @@ def _aw_run_bound(a1: np.ndarray, a2: np.ndarray, n: int) -> int:
     """IDG-AW ``max_runs``: each pair's track splits at a handful of
     coarse-uv-tile crossings, so ``8·npair + n/128 + 64`` bounds the runs
     of track data; overflow beyond it is counted, not refused."""
-    nant_b = int(max(a1.max(initial=0), a2.max(initial=0))) + 2
-    npair = len(np.unique(a1 * nant_b + a2))
+    with span("sdp.host_prep.pairs", host_only=True):
+        nant_b = int(max(a1.max(initial=0), a2.max(initial=0))) + 2
+        npair = len(np.unique(a1 * nant_b + a2))
     return 8 * npair + n // 128 + 64
 
 
@@ -354,9 +381,10 @@ def _aw_screens(akerns, subgrid: int, theta: float, lam: int, fov_pad,
     """Image-domain screens on ``device``, sampled at the gridding FOV's
     angular scale (``θ·n_grid/n`` with ``fov_pad``)."""
     n_t, n_g, _, _ = fov_pad_geometry(theta, lam, fov_pad)
-    scr = aw_screens_host(np.asarray(akerns, prec.np_complex), subgrid,
-                          fov_scale=n_g / n_t).astype(prec.np_complex)
-    return torch.as_tensor(scr, device=device)
+    with span("sdp.host_prep.screens", host_only=True):
+        scr = aw_screens_host(np.asarray(akerns, prec.np_complex), subgrid,
+                              fov_scale=n_g / n_t).astype(prec.np_complex)
+    return to_device(scr, device)
 
 
 _AW_DROP_REASON = ("their uv spread exceeded their pair-chunk's subgrid; the "
@@ -364,8 +392,9 @@ _AW_DROP_REASON = ("their uv spread exceeded their pair-chunk's subgrid; the "
 
 
 def _ant_ids(vis_data: VisData, n: int):
-    return (np.asarray(vis_data.antenna1[:n], np.int64),
-            np.asarray(vis_data.antenna2[:n], np.int64))
+    with span("sdp.host_prep.cast", host_only=True):
+        return (np.asarray(vis_data.antenna1[:n], np.int64),
+                np.asarray(vis_data.antenna2[:n], np.int64))
 
 
 # ---------------------------------------------------------------------------
@@ -404,38 +433,41 @@ def _aw_idg_pipeline(screens, uvw, a1, a2, f, vis, *, theta: float,
     image is unchanged.  Returns ``(img, img.max(), n_dropped)`` as
     tensors.
     """
-    g, a1, a2 = aw_grid_inputs(uvw, a1, a2, f, vis, theta=theta, lam=lam,
-                               fov_pad=fov_pad, layout=layout)
+    with span("sdp.device_prep"):
+        g, a1, a2 = aw_grid_inputs(uvw, a1, a2, f, vis, theta=theta,
+                                   lam=lam, fov_pad=fov_pad, layout=layout)
     guv, n_dropped = idg_aw_gridder(
         g.grid_shape, g.p, a1, a2, g.w, g.vis, screens, theta=g.theta,
         subgrid=subgrid, taper_beta=taper_beta, max_runs=max_runs,
         ordered=layout is not None)
-    img = _idg_finish(guv, g.n, g.grid_shape[0], g.crop_lo, subgrid,
-                      taper_beta, uvw.dtype)
-    return img, torch.max(img), n_dropped
+    with span("sdp.finish"):
+        img = _idg_finish(guv, g.n, g.grid_shape[0], g.crop_lo, subgrid,
+                          taper_beta, uvw.dtype)
+        return img, torch.max(img), n_dropped
 
 
 def _detect_time_major_layout(a1, a2, time, n):
     """Host-side check: are ``records[:n]`` an ``[ntime, nbl]`` raster (the
     vis-file layout, the same baseline set repeating per time slot)?
     Returns ``(ntime, nbl)`` if so, else None; None only costs the sort."""
-    t = np.asarray(time[:n])
-    if n == 0:
-        return None
-    if t[0] == t[-1]:
-        nbl = n
-    else:
-        nbl = int(np.argmax(t != t[0]))
-        if nbl == 0 or n % nbl != 0:
+    with span("sdp.host_prep.layout", host_only=True):
+        t = np.asarray(time[:n])
+        if n == 0:
             return None
-    ntime = n // nbl
-    a1r = np.asarray(a1[:n]).reshape(ntime, nbl)
-    a2r = np.asarray(a2[:n]).reshape(ntime, nbl)
-    tr = t.reshape(ntime, nbl)
-    if not (np.all(a1r == a1r[0]) and np.all(a2r == a2r[0])
-            and np.all(tr == tr[:, :1])):
-        return None
-    return ntime, nbl
+        if t[0] == t[-1]:
+            nbl = n
+        else:
+            nbl = int(np.argmax(t != t[0]))
+            if nbl == 0 or n % nbl != 0:
+                return None
+        ntime = n // nbl
+        a1r = np.asarray(a1[:n]).reshape(ntime, nbl)
+        a2r = np.asarray(a2[:n]).reshape(ntime, nbl)
+        tr = t.reshape(ntime, nbl)
+        if not (np.all(a1r == a1r[0]) and np.all(a2r == a2r[0])
+                and np.all(tr == tr[:, :1])):
+            return None
+        return ntime, nbl
 
 
 def aw_idg_image(vis_data: VisData, akerns, *, theta: float = 0.008,
@@ -450,19 +482,24 @@ def aw_idg_image(vis_data: VisData, akerns, *, theta: float = 0.008,
     once."""
     prec = _precision(precision)
     n = n if n is not None else vis_data.vis.shape[0]
-    a1, a2 = _ant_ids(vis_data, n)
-    screens = _aw_screens(akerns, subgrid, theta, lam, fov_pad, prec, device)
-    uvw, f, vis = idg_inputs(vis_data, n=n, precision=precision,
-                             device=device)
-    img, mx, n_dropped = _aw_idg_pipeline(
-        screens, uvw, torch.as_tensor(a1.astype(np.int32), device=device),
-        torch.as_tensor(a2.astype(np.int32), device=device), f, vis,
-        theta=theta, lam=lam, subgrid=subgrid, taper_beta=taper_beta,
-        max_runs=_aw_run_bound(a1, a2, n), fov_pad=fov_pad,
-        layout=_detect_time_major_layout(a1, a2, vis_data.time, n))
-    nd = int(n_dropped)
-    _note_drops("idg_aw_gridder", nd, _AW_DROP_REASON)
-    return IDGImage(img, float(mx), nd)
+    with _entry("aw_idg_image", vis_data, n):
+        with span("sdp.host_prep"):
+            a1, a2 = _ant_ids(vis_data, n)
+            screens = _aw_screens(akerns, subgrid, theta, lam, fov_pad,
+                                  prec, device)
+            uvw, f, vis = idg_inputs(vis_data, n=n, precision=precision,
+                                     device=device)
+            a1_d = to_device(a1, device, np_dtype=np.int32)
+            a2_d = to_device(a2, device, np_dtype=np.int32)
+            max_runs = _aw_run_bound(a1, a2, n)
+            layout = _detect_time_major_layout(a1, a2, vis_data.time, n)
+        img, mx, n_dropped = _aw_idg_pipeline(
+            screens, uvw, a1_d, a2_d, f, vis, theta=theta, lam=lam,
+            subgrid=subgrid, taper_beta=taper_beta, max_runs=max_runs,
+            fov_pad=fov_pad, layout=layout)
+        nd = readback(n_dropped, int)
+        _note_drops("idg_aw_gridder", nd, _AW_DROP_REASON)
+        return IDGImage(img, readback(mx, float), nd)
 
 
 def _aw_idg_staged(screens, uvw, a1, a2, f, vis, *, theta: float, lam: int,
@@ -650,8 +687,10 @@ def _idg_predict_pipeline(img, uvw, f, *, theta: float, lam: int,
     before the taper division, so edge sources carry the same bounded
     accuracy as the padded imaging direction.  Returns ``(vis,
     n_dropped)``."""
-    d = degrid_inputs(img, uvw, f, theta=theta, lam=lam, subgrid=subgrid,
-                      taper_beta=taper_beta, fov_pad=fov_pad)
+    with span("sdp.device_prep"):
+        d = degrid_inputs(img, uvw, f, theta=theta, lam=lam,
+                          subgrid=subgrid, taper_beta=taper_beta,
+                          fov_pad=fov_pad)
     return idg_degridder(tuple(d.grid.shape), d.p, d.w, d.grid,
                          theta=d.theta, subgrid=subgrid,
                          taper_beta=taper_beta)
@@ -664,8 +703,10 @@ def _aw_idg_predict_pipeline(screens, img, uvw, a1, a2, f, *, theta: float,
     with direction-dependent antenna terms, the exact adjoint of the
     IDG-AW gridder.  ``screens`` must be sampled at the padded FOV's
     scale when ``fov_pad`` is set.  Returns ``(vis, n_dropped)``."""
-    d = degrid_inputs(img, uvw, f, theta=theta, lam=lam, subgrid=subgrid,
-                      taper_beta=taper_beta, fov_pad=fov_pad)
+    with span("sdp.device_prep"):
+        d = degrid_inputs(img, uvw, f, theta=theta, lam=lam,
+                          subgrid=subgrid, taper_beta=taper_beta,
+                          fov_pad=fov_pad)
     return idg_aw_degridder(tuple(d.grid.shape), d.p, a1, a2, d.w, d.grid,
                             screens, theta=d.theta, subgrid=subgrid,
                             taper_beta=taper_beta, max_runs=max_runs)
@@ -677,14 +718,14 @@ def _model_tensor(model, theta: float, lam: int, prec, device):
         raise ValueError(
             f"model image {tuple(model.shape)} does not match grid "
             f"({n_grid}, {n_grid}) for theta={theta}, lam={lam}")
-    return torch.as_tensor(model, dtype=prec.real, device=device)
+    return to_device(model, device, dtype=prec.real)
 
 
 def _prediction(vis: torch.Tensor, n_dropped, kind: str) -> Prediction:
-    nd = int(n_dropped)
+    nd = readback(n_dropped, int)
     _note_drops(kind, nd, "predictions are 0 there; the data is not "
                 "track-ordered enough for pair-chunking")
-    peak = float(vis.abs().max()) if vis.numel() else 0.0
+    peak = readback(vis.abs().max(), float) if vis.numel() else 0.0
     return Prediction(vis, peak, nd)
 
 
@@ -698,12 +739,14 @@ def idg_predict_vis(vis_data: VisData, model, *, theta: float = 0.008,
     ``device`` (``"cuda"`` runs the CUDA degridder, ``"cpu"`` its plain
     version)."""
     prec = _precision(precision)
-    img = _model_tensor(model, theta, lam, prec, device)
-    uvw, f = _uvw_freq(vis_data, n, prec, device)
-    vis, n_dropped = _idg_predict_pipeline(
-        img, uvw, f, theta=theta, lam=lam, subgrid=subgrid,
-        taper_beta=taper_beta, fov_pad=fov_pad)
-    return _prediction(vis, n_dropped, "idg_degridder")
+    with _entry("idg_predict_vis", vis_data, n):
+        with span("sdp.host_prep"):
+            img = _model_tensor(model, theta, lam, prec, device)
+            uvw, f = _uvw_freq(vis_data, n, prec, device)
+        vis, n_dropped = _idg_predict_pipeline(
+            img, uvw, f, theta=theta, lam=lam, subgrid=subgrid,
+            taper_beta=taper_beta, fov_pad=fov_pad)
+        return _prediction(vis, n_dropped, "idg_degridder")
 
 
 def aw_predict_vis(vis_data: VisData, akerns, model, *,
@@ -715,18 +758,22 @@ def aw_predict_vis(vis_data: VisData, akerns, model, *,
     s]`` from the model image on ``device``.  Dropped records predict 0
     and are counted in ``kernels.drop_counters()``."""
     prec = _precision(precision)
-    img = _model_tensor(model, theta, lam, prec, device)
     n = n if n is not None else vis_data.uvw.shape[0]
-    a1, a2 = _ant_ids(vis_data, n)
-    screens = _aw_screens(akerns, subgrid, theta, lam, fov_pad, prec, device)
-    uvw, f = _uvw_freq(vis_data, n, prec, device)
-    vis, n_dropped = _aw_idg_predict_pipeline(
-        screens, img, uvw,
-        torch.as_tensor(a1.astype(np.int32), device=device),
-        torch.as_tensor(a2.astype(np.int32), device=device), f,
-        theta=theta, lam=lam, subgrid=subgrid, taper_beta=taper_beta,
-        max_runs=_aw_run_bound(a1, a2, n), fov_pad=fov_pad)
-    return _prediction(vis, n_dropped, "idg_aw_degridder")
+    with _entry("aw_predict_vis", vis_data, n):
+        with span("sdp.host_prep"):
+            img = _model_tensor(model, theta, lam, prec, device)
+            a1, a2 = _ant_ids(vis_data, n)
+            screens = _aw_screens(akerns, subgrid, theta, lam, fov_pad,
+                                  prec, device)
+            uvw, f = _uvw_freq(vis_data, n, prec, device)
+            a1_d = to_device(a1, device, np_dtype=np.int32)
+            a2_d = to_device(a2, device, np_dtype=np.int32)
+            max_runs = _aw_run_bound(a1, a2, n)
+        vis, n_dropped = _aw_idg_predict_pipeline(
+            screens, img, uvw, a1_d, a2_d, f, theta=theta, lam=lam,
+            subgrid=subgrid, taper_beta=taper_beta, max_runs=max_runs,
+            fov_pad=fov_pad)
+        return _prediction(vis, n_dropped, "idg_aw_degridder")
 
 
 def _write_prediction(outfile: Optional[str], pred: np.ndarray,
@@ -824,16 +871,19 @@ def _wproj_pipeline(bank_conj, wbins, uvw, f, vis, *, theta: float,
     mirroring as IDG's inputs, each record's w-plane closest to its
     mirrored w, the bank scatter, Hermitian completion and the centred
     inverse FFT.  Returns ``(img, img.max())`` as tensors."""
-    g = idg_grid_inputs(uvw, f, vis, theta=theta, lam=lam)
-    wbin = find_closest(wbins, g.w)
-    return _hermitian_image(wproj_gridder(bank_conj, g.grid_shape, g.p, wbin,
-                                          g.vis, chunk=chunk))
+    with span("sdp.device_prep"):
+        g = idg_grid_inputs(uvw, f, vis, theta=theta, lam=lam)
+        wbin = find_closest(wbins, g.w)
+    guv = wproj_gridder(bank_conj, g.grid_shape, g.p, wbin, g.vis,
+                        chunk=chunk)
+    with span("sdp.finish"):
+        return _hermitian_image(guv)
 
 
 def _bank(wkerns, wbins, prec, device):
     """``(bank, centres)`` tensors on ``device`` in the run's precision."""
-    return (torch.as_tensor(wkerns, dtype=prec.complex, device=device),
-            torch.as_tensor(wbins, dtype=prec.real, device=device))
+    return (to_device(wkerns, device, dtype=prec.complex),
+            to_device(wbins, device, dtype=prec.real))
 
 
 def w_image(vis_data: VisData, wkerns, wbins, *, theta: float = 0.008,
@@ -845,13 +895,15 @@ def w_image(vis_data: VisData, wkerns, wbins, *, theta: float = 0.008,
     (``"cuda"`` runs the CUDA scatter, ``"cpu"`` its plain version).
     ``n`` caps the record count."""
     prec = _precision(precision)
-    uvw, f, vis = idg_inputs(vis_data, n=n, precision=precision,
-                             device=device)
-    bank, wb = _bank(wkerns, wbins, prec, device)
-    img, mx = _wproj_pipeline(torch.conj(bank).resolve_conj(), wb, uvw, f,
-                              vis, theta=theta, lam=lam,
-                              chunk=_vis_chunk(vis.shape[0]))
-    return WImage(img, float(mx))
+    with _entry("w_image", vis_data, n):
+        with span("sdp.host_prep"):
+            uvw, f, vis = idg_inputs(vis_data, n=n, precision=precision,
+                                     device=device)
+            bank, wb = _bank(wkerns, wbins, prec, device)
+        img, mx = _wproj_pipeline(torch.conj(bank).resolve_conj(), wb, uvw,
+                                  f, vis, theta=theta, lam=lam,
+                                  chunk=_vis_chunk(vis.shape[0]))
+        return WImage(img, readback(mx, float))
 
 
 def _wproj_staged(bank_conj, wbins, uvw, f, vis, *, theta: float, lam: int,
@@ -1329,9 +1381,10 @@ def _predict_pipeline(wkerns, wbins, img, uvw, f, *, theta: float, lam: int,
                       chunk: int):
     """Model image → centred FFT → bank gather at the records' unmirrored
     uvw in wavelengths, each with the w-plane closest to its w."""
-    uvw0 = uvw_lambda(f, uvw)
-    grid = fft_centered(img.to(wkerns.dtype))
-    wbin = find_closest(wbins, uvw0[:, 2])
+    with span("sdp.device_prep"):
+        uvw0 = uvw_lambda(f, uvw)
+        grid = fft_centered(img.to(wkerns.dtype))
+        wbin = find_closest(wbins, uvw0[:, 2])
     return wproj_degridder(wkerns, grid, uvw0 / lam, wbin, chunk=chunk)
 
 
@@ -1344,12 +1397,14 @@ def w_predict_vis(vis_data: VisData, wkerns, wbins, model, *,
     on ``device`` (``"cuda"`` runs the CUDA gather, ``"cpu"`` its plain
     version).  Nothing is dropped on this path."""
     prec = _precision(precision)
-    img = _model_tensor(model, theta, lam, prec, device)
-    uvw, f = _uvw_freq(vis_data, n, prec, device)
-    bank, wb = _bank(wkerns, wbins, prec, device)
-    vis = _predict_pipeline(bank, wb, img, uvw, f, theta=theta, lam=lam,
-                            chunk=_vis_chunk(uvw.shape[0]))
-    return _prediction(vis, 0, "wproj_degridder")
+    with _entry("w_predict_vis", vis_data, n):
+        with span("sdp.host_prep"):
+            img = _model_tensor(model, theta, lam, prec, device)
+            uvw, f = _uvw_freq(vis_data, n, prec, device)
+            bank, wb = _bank(wkerns, wbins, prec, device)
+        vis = _predict_pipeline(bank, wb, img, uvw, f, theta=theta, lam=lam,
+                                chunk=_vis_chunk(uvw.shape[0]))
+        return _prediction(vis, 0, "wproj_degridder")
 
 
 def w_predict(wfile: str, datfile: str, modelfile: str,

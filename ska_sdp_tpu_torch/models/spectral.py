@@ -60,7 +60,7 @@ from ..types import precision as _precision
 from ..utils.timing import PhaseTimer, _block
 from .dataset import (VisData, _aw_screens, _bank, _detect_time_major_layout,
                       _idg_finish, _vis_chunk, get_akernels, get_wkernels,
-                      load_vis_data)
+                      load_vis_data, to_device)
 
 C_LIGHT = 299792458.0
 SUPPORT = 15
@@ -312,10 +312,9 @@ def _cube_inputs(vis_data: VisData, channels, n, prec, device):
     nfreq = vis_data.frequencies.shape[0]
     nch = nfreq if channels is None else min(channels, nfreq)
     freqs = np.asarray(vis_data.frequencies[:nch], np.float64)
-    uvw = torch.as_tensor(np.asarray(vis_data.uvw[:n], prec.np_real),
-                          device=device)
-    vis = torch.as_tensor(np.ascontiguousarray(
-        vis_data.vis_chan[:n, :nch], prec.np_complex), device=device)
+    uvw = to_device(vis_data.uvw[:n], device, np_dtype=prec.np_real)
+    vis = to_device(vis_data.vis_chan[:n, :nch], device,
+                    np_dtype=prec.np_complex)
     return n, freqs, uvw, vis.T.contiguous()
 
 

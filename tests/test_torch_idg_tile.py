@@ -522,8 +522,10 @@ class TestPhaseTimer:
         with timer.phase("h2d+grid"):
             torch.ones(4).sum()
         assert "[phase] h2d+grid" in capsys.readouterr().out
-        traces = os.listdir(tmp_path / "tr")
-        assert len(traces) == 1 and traces[0].endswith(".json")
+        # the phase's trace and, beside it, the spans the phase logged
+        traces = sorted(os.listdir(tmp_path / "tr"))
+        assert len(traces) == 2 and traces[0].endswith(".json")
+        assert traces[1] == traces[0][:-len(".json")] + ".spans.json"
         monkeypatch.delenv("SKA_SDP_TPU_DUMP_PHASES")
         monkeypatch.delenv("SKA_SDP_TPU_TRACE_DIR")
         quiet = PhaseTimer()
