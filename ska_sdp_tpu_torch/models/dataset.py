@@ -78,7 +78,7 @@ from ..ops import (doweight, fft_centered, ifft_centered, make_grid_hermitian,
                    mirror_uvw, uvw_lambda)
 from ..ops.idg import (fov_pad_finish, fov_pad_geometry, fov_pad_start,
                        kaiser_taper, taper_fine)
-from ..ops.idg_aw import aw_screens_host
+from ..ops.idg_aw import aw_screens
 from ..ops.search import find_closest
 from ..types import precision as _precision
 from ..utils.timing import PhaseTimer, add, readback, span
@@ -366,25 +366,39 @@ def get_akernels(afile: str, theta: float, t: float, f: float) -> np.ndarray:
     return h5.read_datasets_stacked(afile, names, dtype=np.complex128)
 
 
-def _aw_run_bound(a1: np.ndarray, a2: np.ndarray, n: int) -> int:
+def _aw_run_bound(a1, a2, n: int) -> int:
     """IDG-AW ``max_runs``: each pair's track splits at a handful of
     coarse-uv-tile crossings, so ``8·npair + n/128 + 64`` bounds the runs
-    of track data; overflow beyond it is counted, not refused."""
-    with span("sdp.host_prep.pairs", host_only=True):
-        nant_b = int(max(a1.max(initial=0), a2.max(initial=0))) + 2
-        npair = len(np.unique(a1 * nant_b + a2))
-    return 8 * npair + n // 128 + 64
+    of track data; overflow beyond it is counted, not refused.  The
+    distinct ``(a1, a2)`` pairs are counted where the ids are (numpy ids
+    on the CPU): the sorted pair keys' steps, read once."""
+    a1, a2 = torch.as_tensor(a1), torch.as_tensor(a2)
+    with span("sdp.device_prep"):
+        keys = torch.sort(a1.to(torch.int64) * 2**32
+                          + a2.to(torch.int64)).values
+        npair = (keys[1:] != keys[:-1]).sum() + (keys.numel() > 0)
+    return 8 * readback(npair, int) + n // 128 + 64
+
+
+def _stamps(akerns, prec, device) -> torch.Tensor:
+    """The A-kernel stamps ``[nant, s, s]`` as ``prec.complex`` on
+    ``device``."""
+    if isinstance(akerns, torch.Tensor):
+        return to_device(akerns, device, dtype=prec.complex)
+    return to_device(akerns, device, np_dtype=prec.np_complex)
 
 
 def _aw_screens(akerns, subgrid: int, theta: float, lam: int, fov_pad,
                 prec, device) -> torch.Tensor:
     """Image-domain screens on ``device``, sampled at the gridding FOV's
-    angular scale (``θ·n_grid/n`` with ``fov_pad``)."""
+    angular scale (``θ·n_grid/n`` with ``fov_pad``), built there from the
+    stamps (numpy or a tensor) in complex128 and cast to
+    ``prec.complex``."""
     n_t, n_g, _, _ = fov_pad_geometry(theta, lam, fov_pad)
-    with span("sdp.host_prep.screens", host_only=True):
-        scr = aw_screens_host(np.asarray(akerns, prec.np_complex), subgrid,
-                              fov_scale=n_g / n_t).astype(prec.np_complex)
-    return to_device(scr, device)
+    ak = _stamps(akerns, prec, device)
+    with span("sdp.device_prep"):
+        return aw_screens(ak, subgrid, fov_scale=n_g / n_t,
+                          dtype=prec.complex)
 
 
 _AW_DROP_REASON = ("their uv spread exceeded their pair-chunk's subgrid; the "
@@ -485,14 +499,14 @@ def aw_idg_image(vis_data: VisData, akerns, *, theta: float = 0.008,
     with _entry("aw_idg_image", vis_data, n):
         with span("sdp.host_prep"):
             a1, a2 = _ant_ids(vis_data, n)
-            screens = _aw_screens(akerns, subgrid, theta, lam, fov_pad,
-                                  prec, device)
+            ak = _stamps(akerns, prec, device)
             uvw, f, vis = idg_inputs(vis_data, n=n, precision=precision,
                                      device=device)
             a1_d = to_device(a1, device, np_dtype=np.int32)
             a2_d = to_device(a2, device, np_dtype=np.int32)
-            max_runs = _aw_run_bound(a1, a2, n)
             layout = _detect_time_major_layout(a1, a2, vis_data.time, n)
+        max_runs = _aw_run_bound(a1_d, a2_d, n)
+        screens = _aw_screens(ak, subgrid, theta, lam, fov_pad, prec, device)
         img, mx, n_dropped = _aw_idg_pipeline(
             screens, uvw, a1_d, a2_d, f, vis, theta=theta, lam=lam,
             subgrid=subgrid, taper_beta=taper_beta, max_runs=max_runs,
@@ -611,14 +625,13 @@ def aw_gridding(wfile: Optional[str], afile: str, datfile: str,
     n = n if n is not None else data.vis.shape[0]
     with timer.phase("h2d+compile+grid+fft"):
         if idg and device_phases:
-            a1, a2 = _ant_ids(data, n)
+            a1, a2 = (torch.as_tensor(a.astype(np.int32), device=device)
+                      for a in _ant_ids(data, n))
             uvw, f, vis = idg_inputs(data, n=n, precision=prec,
                                      device=device)
             img_t, mx, nd = _aw_idg_staged(
                 _aw_screens(akerns, subgrid, theta, lam, fov_pad, prec,
-                            device), uvw,
-                torch.as_tensor(a1.astype(np.int32), device=device),
-                torch.as_tensor(a2.astype(np.int32), device=device), f, vis,
+                            device), uvw, a1, a2, f, vis,
                 theta=theta, lam=lam, subgrid=subgrid, taper_beta=12.0,
                 max_runs=_aw_run_bound(a1, a2, n), timer=timer,
                 fov_pad=fov_pad)
@@ -763,12 +776,12 @@ def aw_predict_vis(vis_data: VisData, akerns, model, *,
         with span("sdp.host_prep"):
             img = _model_tensor(model, theta, lam, prec, device)
             a1, a2 = _ant_ids(vis_data, n)
-            screens = _aw_screens(akerns, subgrid, theta, lam, fov_pad,
-                                  prec, device)
+            ak = _stamps(akerns, prec, device)
             uvw, f = _uvw_freq(vis_data, n, prec, device)
             a1_d = to_device(a1, device, np_dtype=np.int32)
             a2_d = to_device(a2, device, np_dtype=np.int32)
-            max_runs = _aw_run_bound(a1, a2, n)
+        max_runs = _aw_run_bound(a1_d, a2_d, n)
+        screens = _aw_screens(ak, subgrid, theta, lam, fov_pad, prec, device)
         vis, n_dropped = _aw_idg_predict_pipeline(
             screens, img, uvw, a1_d, a2_d, f, theta=theta, lam=lam,
             subgrid=subgrid, taper_beta=taper_beta, max_runs=max_runs,

@@ -1,6 +1,7 @@
 """IDG-AW geometry shared by the run prep and the gridder (port of
 ``ska_sdp_tpu/ops/idg_aw.py``): the taper-tail fit margin, image-domain
-antenna screens, and the per-record (pair, uv-tile) keys.
+antenna screens (on the stamps' device, and their numpy twin), and the
+per-record (pair, uv-tile) keys.
 
 Records are grouped into runs that share one antenna pair and one coarse
 uv tile of side ``Tc = max(2·margin − 2, 8)``.  A run's subgrid origin is a
@@ -36,6 +37,20 @@ def aw_screens_host(akerns, S: int, fov_scale: float = 1.0) -> np.ndarray:
     q = np.arange(S) - S // 2
     E = np.exp(-2j * np.pi * fov_scale / S * np.outer(q, j))
     return E @ ak @ E.T                  # Σ_jk E[q, j]·ak[a, j, k]·E[r, k]
+
+
+def aw_screens(akerns: torch.Tensor, S: int, fov_scale: float = 1.0,
+               dtype=torch.complex64) -> torch.Tensor:
+    """The screens of :func:`aw_screens_host` on ``akerns``' device: the
+    stamps as given, the phase matrix ``E`` ``[S, s]`` and the two
+    products ``E·ak·Eᵀ`` in complex128, then the cast to ``dtype``."""
+    ak = akerns.to(torch.complex128)
+    s = ak.shape[-1]
+    j = torch.arange(s, dtype=torch.float64, device=ak.device) - s // 2
+    q = torch.arange(S, dtype=torch.float64, device=ak.device) - S // 2
+    phase = (-2 * np.pi * fov_scale / S) * torch.outer(q, j)
+    E = torch.polar(torch.ones_like(phase), phase)
+    return (E @ ak @ E.T).to(dtype)
 
 
 def _record_keys(grid_shape, p: torch.Tensor, a1: torch.Tensor,

@@ -42,8 +42,7 @@ torch.set_num_threads(2)
 THETA, LAM, N = 0.05, 5120, 256
 CFG = SyntheticConfig(theta=THETA, lam=LAM, nant=6, ntime=4, nw_planes=4,
                       qpx=2, npix_ff=32, npix_kern=7)
-HOST_ONLY = {"sdp.host_prep.cast", "sdp.host_prep.screens",
-             "sdp.host_prep.pairs", "sdp.host_prep.layout"}
+HOST_ONLY = {"sdp.host_prep.cast", "sdp.host_prep.layout"}
 # the direct children of each entry's root, in the order they start
 CHILDREN = {
     "idg_image": ["sdp.host_prep", "sdp.device_prep", "sdp.device_prep",
@@ -52,10 +51,12 @@ CHILDREN = {
     "idg_predict_vis": ["sdp.host_prep", "sdp.device_prep",
                         "sdp.device_prep", "sdp.kernel.idg_degrid",
                         "sdp.readback", "sdp.readback"],
-    "aw_idg_image": ["sdp.host_prep", "sdp.device_prep", "sdp.device_prep",
+    "aw_idg_image": ["sdp.host_prep", "sdp.device_prep", "sdp.readback",
+                     "sdp.device_prep", "sdp.device_prep", "sdp.device_prep",
                      "sdp.kernel.idg_grid", "sdp.finish", "sdp.readback",
                      "sdp.readback"],
-    "aw_predict_vis": ["sdp.host_prep", "sdp.device_prep",
+    "aw_predict_vis": ["sdp.host_prep", "sdp.device_prep", "sdp.readback",
+                       "sdp.device_prep", "sdp.device_prep",
                        "sdp.device_prep", "sdp.kernel.idg_degrid",
                        "sdp.readback", "sdp.readback"],
     "w_image": ["sdp.host_prep", "sdp.device_prep", "sdp.kernel.wproj_grid",
@@ -63,10 +64,11 @@ CHILDREN = {
     "w_predict_vis": ["sdp.host_prep", "sdp.device_prep",
                       "sdp.kernel.wproj_gather", "sdp.readback"],
 }
-# reads of results from the device: the dropped count, then the image
-# maximum or the prediction's peak (w-projection predicts drop nothing)
-READS = {"idg_image": 2, "idg_predict_vis": 2, "aw_idg_image": 2,
-         "aw_predict_vis": 2, "w_image": 1, "w_predict_vis": 1}
+# reads from the device: IDG-AW's distinct-pair count, then the dropped
+# count, then the image maximum or the prediction's peak (w-projection
+# predicts drop nothing)
+READS = {"idg_image": 2, "idg_predict_vis": 2, "aw_idg_image": 3,
+         "aw_predict_vis": 3, "w_image": 1, "w_predict_vis": 1}
 ENTRIES = sorted(CHILDREN)
 
 
@@ -101,8 +103,8 @@ def _call(name, inp, device="cpu"):
 def _h2d_bytes(name, inp):
     """The bytes of the host arrays an entry hands to its device: uvw as
     float32, the frequency, the visibilities as complex64 (images), the
-    model as float32 (predicts), the screens as complex64 and the antenna
-    ids as int32 (A-terms), the bank as complex64 and its centres as
+    model as float32 (predicts), the A-kernel stamps as complex64 and the
+    antenna ids as int32 (A-terms), the bank as complex64 and its centres as
     float32 (w-projection)."""
     n = inp["vd"].uvw.shape[0]
     total = 12 * n + 4
@@ -111,7 +113,7 @@ def _h2d_bytes(name, inp):
     else:
         total += 4 * N * N
     if name.startswith("aw_"):
-        total += inp["akerns"].shape[0] * 64 * 64 * 8 + 2 * 4 * n
+        total += inp["akerns"].size * 8 + 2 * 4 * n
     if name.startswith("w_"):
         total += inp["bank"].size * 8 + inp["centers"].size * 4
     return total
@@ -152,8 +154,6 @@ def test_one_root_with_the_layers_in_order(inputs, name):
     under = {s.name for s in log if s.parent == prep.id}
     assert "sdp.host_prep.cast" in under
     assert under <= HOST_ONLY
-    if name.startswith("aw_"):
-        assert {"sdp.host_prep.screens", "sdp.host_prep.pairs"} <= under
     if name == "aw_idg_image":
         assert "sdp.host_prep.layout" in under
 
