@@ -81,7 +81,8 @@ from ..ops.idg import (fov_pad_finish, fov_pad_geometry, fov_pad_start,
 from ..ops.idg_aw import aw_screens
 from ..ops.search import find_closest
 from ..types import precision as _precision
-from ..utils.timing import PhaseTimer, add, readback, span
+from ..utils import hostmem
+from ..utils.timing import COUNTERS, PhaseTimer, add, readback, span
 from .imaging import ImagingResult, aw_imaging, do_imaging, mode_imgfn
 
 
@@ -205,12 +206,28 @@ def _idg_finish(guv: torch.Tensor, n: int, n_pad: int, crop_lo: int,
 
 
 def to_device(x, device, *, np_dtype=None, dtype=None) -> torch.Tensor:
-    """``torch.as_tensor(x, dtype=dtype, device=device)``, after the host
-    cast ``np.ascontiguousarray(x, np_dtype)`` (span
-    ``sdp.host_prep.cast``) when ``np_dtype`` is given.  The bytes copied
-    from host memory to a card count in the open spans' ``h2d_bytes``; a
-    tensor already on a card, or one that stays on the host, counts 0.
-    The copy is from pageable memory."""
+    """``torch.as_tensor(x, dtype=dtype, device=device)`` after the host
+    cast ``np.ascontiguousarray(x, np_dtype)`` when ``np_dtype`` is given,
+    bit for bit.  On a CUDA device a numpy array whose buffer is
+    registered as page-locked (``utils.hostmem``: handed over before) is
+    copied asynchronously in its own dtype and cast on the card; the
+    entries' readbacks wait for the copy.  Anything else takes the host
+    cast (span ``sdp.host_prep.cast``) and a pageable copy.  The bytes
+    copied from host memory to a card count in the open spans'
+    ``h2d_bytes``, those from registered memory also in
+    ``h2d_registered_bytes``; a tensor already on a card, or one that
+    stays on the host, counts 0.  ``timing.COUNTERS`` counts the copies
+    ``h2d/registered`` and ``h2d/pageable``."""
+    got = (hostmem.pinned_copy(x, device)
+           if torch.device(device).type == "cuda" else None)
+    if got is not None:
+        t, nbytes = got
+        add("h2d_bytes", nbytes)
+        add("h2d_registered_bytes", nbytes)
+        COUNTERS.add("h2d/registered")
+        if np_dtype is not None:
+            t = t.to(hostmem.TORCH_DTYPE[np.dtype(np_dtype)])
+        return t if dtype is None else t.to(dtype)
     if np_dtype is not None:
         with span("sdp.host_prep.cast", host_only=True):
             x = np.ascontiguousarray(x, np_dtype)
@@ -218,21 +235,23 @@ def to_device(x, device, *, np_dtype=None, dtype=None) -> torch.Tensor:
     if t.device.type != "cpu" and not (isinstance(x, torch.Tensor)
                                        and x.device.type != "cpu"):
         add("h2d_bytes", t.numel() * t.element_size())
+        COUNTERS.add("h2d/pageable")
     return t
 
 
 def _entry(name: str, vis_data: VisData, n: Optional[int], **counts):
     """The root span ``sdp.<name>`` of an in-memory entry over the first
-    ``n`` records, with the entry's own ``counts`` beside ``records`` and
-    ``h2d_bytes``."""
+    ``n`` records, with the entry's own ``counts`` beside ``records``,
+    ``h2d_bytes`` and ``h2d_registered_bytes``."""
     return span(f"sdp.{name}", records=len(vis_data.uvw[:n]), h2d_bytes=0,
-                **counts)
+                h2d_registered_bytes=0, **counts)
 
 
 def _uvw_freq(vis_data: VisData, n: Optional[int], prec, device):
-    """``(uvw, f)`` tensors of the first ``n`` records on ``device``."""
-    uvw = to_device(vis_data.uvw[:n], device, np_dtype=prec.np_real)
+    """``(uvw, f)`` tensors of the first ``n`` records on ``device``; the
+    frequency's blocking copy first, so it waits for no copy of records."""
     f = to_device(vis_data.frequency, device, dtype=prec.real)
+    uvw = to_device(vis_data.uvw[:n], device, np_dtype=prec.np_real)
     return uvw, f
 
 
@@ -408,9 +427,13 @@ _AW_DROP_REASON = ("their uv spread exceeded their pair-chunk's subgrid; the "
 
 
 def _ant_ids(vis_data: VisData, n: int):
+    """The first ``n`` records' antenna ids as int64 numpy, cast on the
+    host (span ``sdp.host_prep.cast``) only where they are not."""
+    ids = (vis_data.antenna1[:n], vis_data.antenna2[:n])
+    if all(isinstance(a, np.ndarray) and a.dtype == np.int64 for a in ids):
+        return ids
     with span("sdp.host_prep.cast", host_only=True):
-        return (np.asarray(vis_data.antenna1[:n], np.int64),
-                np.asarray(vis_data.antenna2[:n], np.int64))
+        return tuple(np.asarray(a, np.int64) for a in ids)
 
 
 # ---------------------------------------------------------------------------
@@ -1387,11 +1410,11 @@ def aw_image(vis_data: VisData, wkerns, wbins, akerns, *,
     prec = _precision(precision)
     with _entry("aw_image", vis_data, n, aw_pairs=0, aw_table_bytes=0):
         with span("sdp.host_prep"):
+            bank, wb = _bank(wkerns, wbins, prec, device)
+            ak = _stamps(akerns, prec, device)
             uvw, f, vis = idg_inputs(vis_data, n=n, precision=precision,
                                      device=device)
             n = vis.shape[0]
-            bank, wb = _bank(wkerns, wbins, prec, device)
-            ak = _stamps(akerns, prec, device)
             a1, a2 = (to_device(a, device, np_dtype=np.int32)
                       for a in _ant_ids(vis_data, n))
         img, mx = _aw_pipeline(bank, wb, ak, uvw, a1, a2, f, vis,

@@ -4,8 +4,9 @@
   profiler recording, and under ``torch.profiler`` one root ``sdp.<entry>``
   a call whose children run in the layer order (host prep, device prep,
   kernel, finish, readback), nested inside it;
-* the root's ``records`` are the call's, ``h2d_bytes`` 0 on the CPU (on
-  the card, the bytes of the host arrays handed over), one
+* the root's ``records`` are the call's, ``h2d_bytes`` and
+  ``h2d_registered_bytes`` 0 on the CPU (on the card, the bytes of the
+  host arrays handed over, once registered all but the frequency's), one
   ``sdp.readback`` a read the entry makes of its results; ``aw_image``'s
   root also counts the pair table the card's route builds (``aw_pairs``,
   ``aw_table_bytes``), whose distinct-pair count the host reads once
@@ -38,14 +39,15 @@ from ska_sdp_tpu_torch.io.synthetic import (SyntheticConfig, akern_stamps,
 from ska_sdp_tpu_torch.kernels import _build
 from ska_sdp_tpu_torch.models import dataset as ds
 from ska_sdp_tpu_torch.ops.wkernel import w_kernel
-from ska_sdp_tpu_torch.utils import timing
+from ska_sdp_tpu_torch.utils import hostmem, timing
 
 torch.set_num_threads(2)
 
 THETA, LAM, N = 0.05, 5120, 256
 CFG = SyntheticConfig(theta=THETA, lam=LAM, nant=6, ntime=4, nw_planes=4,
                       qpx=2, npix_ff=32, npix_kern=7)
-HOST_ONLY = {"sdp.host_prep.cast", "sdp.host_prep.layout"}
+HOST_ONLY = {"sdp.host_prep.cast", "sdp.host_prep.layout",
+             "sdp.host_prep.register"}
 # the direct children of each entry's root, in the order they start
 CHILDREN = {
     "idg_image": ["sdp.host_prep", "sdp.device_prep", "sdp.device_prep",
@@ -84,8 +86,7 @@ OWN_COUNTS = {"aw_image": {"aw_pairs": 0, "aw_table_bytes": 0}}
 ENTRIES = sorted(CHILDREN)
 
 
-@pytest.fixture(scope="module")
-def inputs():
+def _inputs():
     obs = simulate_observation(CFG)
     vd = ds.vis_data_from_observation(obs)
     model = np.zeros((N, N), np.float32)
@@ -99,6 +100,11 @@ def inputs():
     return dict(vd=vd, model=model, akerns=akerns,
                 akerns7=np.ascontiguousarray(akerns[:, 4:11, 4:11]),
                 bank=bank, centers=centers)
+
+
+@pytest.fixture(scope="module")
+def inputs():
+    return _inputs()
 
 
 def _call(name, inp, device="cpu"):
@@ -118,23 +124,25 @@ def _call(name, inp, device="cpu"):
 
 
 def _h2d_bytes(name, inp):
-    """The bytes of the host arrays an entry hands to its device: uvw as
-    float32, the frequency, the visibilities as complex64 (images), the
-    model as float32 (predicts), the A-kernel stamps as complex64 and the
-    antenna ids as int32 (A-terms), the bank as complex64 and its centres as
-    float32 (w-projection, fused AW)."""
-    n = inp["vd"].uvw.shape[0]
-    total = 12 * n + 4
-    if name.endswith("image"):
-        total += 8 * n
-    else:
-        total += 4 * N * N
+    """``(h2d_bytes, h2d_registered_bytes)`` of an entry's call once the
+    host arrays it is handed are registered: each copied in its own dtype
+    (the IDG-AW entries' stamps, a strided view, through their span of the
+    stamps), uvw, the visibilities (images) or the model (predicts), the
+    A-kernel stamps and the antenna ids (A-terms), the bank and its
+    centres (w-projection, fused AW); the frequency's 4 bytes the pageable
+    way."""
+    vd = inp["vd"]
+    arrays = [vd.uvw, vd.vis if name.endswith("image") else inp["model"]]
     if name.startswith("aw_"):
-        stamps = inp["akerns7" if name == "aw_image" else "akerns"]
-        total += stamps.size * 8 + 2 * 4 * n
+        arrays += [inp["akerns7" if name == "aw_image" else "akerns"],
+                   vd.antenna1, vd.antenna2]
     if name.startswith("w_") or name == "aw_image":
-        total += inp["bank"].size * 8 + inp["centers"].size * 4
-    return total
+        arrays += [inp["bank"], inp["centers"]]
+    registered = 0
+    for a in arrays:
+        lo, hi = hostmem._bounds(a)
+        registered += hi - lo
+    return registered + 4, registered
 
 
 def _profiled(fn):
@@ -182,7 +190,8 @@ def test_root_counts(inputs, name):
     root = next(s for s in log if s.parent is None)
     # the CPU's tensors share the host arrays' memory: nothing is copied
     assert root.counts == {"records": inputs["vd"].uvw.shape[0],
-                           "h2d_bytes": 0, **OWN_COUNTS.get(name, {})}
+                           "h2d_bytes": 0, "h2d_registered_bytes": 0,
+                           **OWN_COUNTS.get(name, {})}
     assert sum(1 for s in log if s.name == "sdp.readback") == READS[name]
     assert all(s.counts == {} for s in log if s is not root)
 
@@ -414,13 +423,16 @@ def cuda():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ENTRIES)
-def test_on_the_card_counts_launches_and_bytes(inputs, name, cuda):
-    _call(name, inputs, cuda)                    # builds the kernels
+def test_on_the_card_counts_launches_and_bytes(name, cuda):
+    inputs = _inputs()                   # buffers no earlier test registered
+    for _ in range(2):                   # builds the kernels; registers
+        _call(name, inputs, cuda)
     before = sum(timing.COUNTERS.group("launches/").values())
     _, log, prof = _profiled(lambda: _call(name, inputs, cuda))
     root = next(s for s in log if s.parent is None)
     assert sum(timing.COUNTERS.group("launches/").values()) - before == 1
-    assert root.counts["h2d_bytes"] == _h2d_bytes(name, inputs)
+    assert (root.counts["h2d_bytes"], root.counts["h2d_registered_bytes"]) \
+        == _h2d_bytes(name, inputs)
     assert sum(1 for s in log if s.name == "sdp.readback") \
         == READS_ON_CARD[name]
     if name == "aw_image":
