@@ -146,7 +146,7 @@ result line):
     of phase 8's model (the route launched the streamed degridder; rel-L2
     ≤ 5e-5 against the route's plain degridder and ≤ 3e-4, the
     reference's S=32 bound, against phase 8's direct DFT), and the
-    stage-timed ``_idg_staged`` at S=64 in memory (image within 1e-4 of
+    stage-timed ``runs.idg_staged`` at S=64 in memory (image within 1e-4 of
     phase 4's over the central 75%, the route launched the streamed
     gridder, the four stage times);
 22. fixed-tile route times (CUDA events, median of 7 after a warm-up) at
@@ -206,8 +206,8 @@ result line):
     count, the scatter's time on the image launch's records beside its
     plain version and its bound, and each mode's time end to end;
 28. the staged drivers of ``--device-phases`` in memory on phase 4's
-    observation (``_wproj_staged`` and ``_aw_fused_staged`` with phase
-    13's bank and phase 17's A-kernels, ``_aw_idg_staged`` at S=64 with
+    observation (``runs.wproj_staged`` and ``runs.aw_fused_staged`` with phase
+    13's bank and phase 17's A-kernels, ``runs.aw_idg_staged`` at S=64 with
     the 512 stations' near-delta screens), each with the launch counts
     reset just before: every stage's time beside the dispatch floor, at
     least one launch of the stage's kernel, the image within 1e-5 rel-L2
@@ -448,7 +448,7 @@ def main_observation():
     """Phase 4's synthetic SKA1-Low observation: ``(obs dict, VisData)``."""
     from ska_sdp_tpu_torch.io.synthetic import (SyntheticConfig,
                                                 simulate_observation)
-    from ska_sdp_tpu_torch.models.dataset import vis_data_from_observation
+    from ska_sdp_tpu_torch.io.inputs import vis_data_from_observation
 
     obs = simulate_observation(SyntheticConfig(theta=THETA, lam=LAM,
                                                nant=512, ntime=8, seed=1234))
@@ -476,7 +476,7 @@ def aw_track_inputs():
     random complex 15×15 A-kernels (seed 12).  Returns a namespace."""
     from types import SimpleNamespace
 
-    from ska_sdp_tpu_torch.models.dataset import VisData
+    from ska_sdp_tpu_torch.io.inputs import VisData
 
     nant = 64
     ii, jj = np.triu_indices(nant, k=1)
@@ -536,7 +536,7 @@ def cube_observation():
     from 150 MHz, 3 sources, seed 6, as ``(obs dict, VisData)``."""
     from ska_sdp_tpu_torch.io.synthetic import (SyntheticConfig,
                                                 simulate_observation)
-    from ska_sdp_tpu_torch.models.dataset import vis_data_from_observation
+    from ska_sdp_tpu_torch.io.inputs import vis_data_from_observation
 
     obs = simulate_observation(SyntheticConfig(
         theta=THETA, lam=LAM, nant=64, ntime=520, nchan=8, nsources=3,
@@ -559,7 +559,7 @@ def aw_cube_inputs():
     time-major [520, 2016] raster with 8 channels 100 kHz apart from 150 MHz
     (uv = p·lam at the band centre) and random visibilities (seed 12):
     1,048,320 records, 8,386,560 channel-visibilities."""
-    from ska_sdp_tpu_torch.models.dataset import VisData
+    from ska_sdp_tpu_torch.io.inputs import VisData
 
     nant, ntime, nchan = 64, 520, 8
     ii, jj = np.triu_indices(nant, k=1)
@@ -592,8 +592,8 @@ def cube_group_inputs(torch, dev, vd, group):
         vd.vis_chan[:, i:j], np.complex64), device=dev).T.contiguous()
     rat = torch.as_tensor((vd.frequencies[i:j] / f_ref).astype(np.float32),
                           device=dev)
-    uvw1, vis1 = sp._group_inputs(uvw, f_ref, rat, vis, theta=THETA,
-                                  lam=LAM, exact=False)
+    uvw1, vis1 = sp.group_inputs(uvw, f_ref, rat, vis, theta=THETA,
+                                 lam=LAM, exact=False)
     return uvw1, vis1, float(rat[0]), drift
 
 
@@ -612,14 +612,14 @@ def cube_channel_prep(torch, dev, vd, group, ak=None):
     n_c = vd.uvw.shape[0]
     uvw1, vis1, r0, drift = cube_group_inputs(torch, dev, vd, group)
     if ak is not None:
-        layout = ds._detect_time_major_layout(vd.antenna1, vd.antenna2,
-                                              vd.time, n_c)
+        layout = ds.detect_time_major_layout(vd.antenna1, vd.antenna2,
+                                             vd.time, n_c)
         a1, a2 = (sp._pair_major(torch.as_tensor(a.astype(np.int32),
                                                  device=dev), layout)
                   for a in (vd.antenna1, vd.antenna2))
         uvw1 = sp._pair_major(uvw1, layout)
         vis1 = sp._pair_major(vis1, layout, axis=1)
-        scr = ds._aw_screens(ak, S, THETA, LAM, None, SINGLE, dev)
+        scr = ds.antenna_screens(ak, S, THETA, LAM, None, SINGLE, dev)
         mr = 8 * int(np.unique(vd.antenna1 * 64 + vd.antenna2).size) \
             + n_c // 128 + 64
     else:
@@ -722,9 +722,9 @@ def main() -> int:
     from ska_sdp_tpu_torch.kernels import _build, _idg_unit_run_bound
     from ska_sdp_tpu_torch.kernels import idg_aw_stream as stream
     from ska_sdp_tpu_torch.kernels.idg_aw_records import idg_aw_run_records
-    from ska_sdp_tpu_torch.models.dataset import (_idg_finish, idg_grid_inputs,
-                                                  idg_image, idg_inputs,
-                                                  vis_data_from_observation)
+    from ska_sdp_tpu_torch.io.inputs import vis_data_from_observation
+    from ska_sdp_tpu_torch.models.dataset import (idg_finish, idg_grid_inputs,
+                                                  idg_image, idg_inputs)
     from ska_sdp_tpu_torch.ops import mirror_uvw, uvw_lambda
     from ska_sdp_tpu_torch.ops.idg_aw import aw_screens_host
 
@@ -874,8 +874,8 @@ def main() -> int:
               f"{win.max() / img.max():.3f} of image max (bound 0.25)")
         if not win.max() > 0.25 * img.max():
             raise AssertionError(f"source at ({l}, {m}) not recovered")
-    img_plain = _idg_finish(pl_full, g.n, g.grid_shape[0], g.crop_lo,
-                            SUBGRID, BETA).cpu().numpy()
+    img_plain = idg_finish(pl_full, g.n, g.grid_shape[0], g.crop_lo,
+                           SUBGRID, BETA).cpu().numpy()
     err_img = rel_l2(crop75(img), crop75(img_plain))
     print(f"  image vs plain-gridder pipeline: rel-L2 {err_img:.3e} over "
           f"the central 75% (bound {IMAGE_TOL})")
@@ -1141,9 +1141,9 @@ def degrid_phases(torch, dev, card, mid, vd, obs, grid_full):
     vd_aw, ak, a1_t, a2_t, time_t = (t_aw.vd, t_aw.ak, t_aw.a1, t_aw.a2,
                                      t_aw.time)
     nant, ii, jj, nbl, nT = t_aw.nant, t_aw.ii, t_aw.jj, t_aw.nbl, t_aw.n
-    mr = ds._aw_run_bound(vd_aw.antenna1, vd_aw.antenna2, nT)
-    layout = ds._detect_time_major_layout(vd_aw.antenna1, vd_aw.antenna2,
-                                          time_t, nT)
+    mr = ds.aw_run_bound(vd_aw.antenna1, vd_aw.antenna2, nT)
+    layout = ds.detect_time_major_layout(vd_aw.antenna1, vd_aw.antenna2,
+                                         time_t, nT)
     if mr != 8 * nbl + nT // 128 + 64 or layout is not None:
         raise AssertionError(f"unexpected run bound {mr} or layout {layout}")
 
@@ -1154,7 +1154,7 @@ def degrid_phases(torch, dev, card, mid, vd, obs, grid_full):
     launches_aw = stream.launch_count(stream.GRID_KERNEL)
     img_aw = res.image.cpu().numpy()
     # the same pipeline on the plain gridder
-    scr = ds._aw_screens(ak, SUBGRID, THETA, LAM, None, SINGLE, dev)
+    scr = ds.antenna_screens(ak, SUBGRID, THETA, LAM, None, SINGLE, dev)
     uvw, f, vis = ds.idg_inputs(vd_aw, device=dev)
     a1d = torch.as_tensor(a1_t.astype(np.int32), device=dev)
     a2d = torch.as_tensor(a2_t.astype(np.int32), device=dev)
@@ -1168,7 +1168,7 @@ def degrid_phases(torch, dev, card, mid, vd, obs, grid_full):
         *recs[:7], scr, grid_shape=ga.grid_shape, theta=ga.theta,
         subgrid=SUBGRID, taper_beta=BETA)[SUBGRID:SUBGRID + n,
                                           SUBGRID:SUBGRID + n]
-    img_plain = ds._idg_finish(guv, n, n, 0, SUBGRID, BETA).cpu().numpy()
+    img_plain = ds.idg_finish(guv, n, n, 0, SUBGRID, BETA).cpu().numpy()
     err_img = rel_l2(crop75(img_aw), crop75(img_plain))
     print(f"IDG-AW image: aw_idg_image {n}² from {nT} track records "
           f"({nant} stations, {nbl} baselines, {n_runs} runs of {mr}), "
@@ -1861,6 +1861,7 @@ def tile_phases(torch, dev, card, vd, obs, img64, model, truth):
     from ska_sdp_tpu_torch.kernels import idg_aw_stream as stream
     from ska_sdp_tpu_torch.kernels import idg_tile
     from ska_sdp_tpu_torch.models import dataset as ds
+    from ska_sdp_tpu_torch.models import runs
     from ska_sdp_tpu_torch.utils.timing import PhaseTimer
 
     S32 = 32
@@ -1977,8 +1978,8 @@ def tile_phases(torch, dev, card, vd, obs, img64, model, truth):
         if not win.max() > 0.25 * crop75(img).max():
             raise AssertionError(f"source at ({l}, {m}) not recovered")
     print("  every source's 5×5 window above 0.25 of the central max")
-    img_plain = ds._idg_finish(main["gp"], g.n, shape[0], g.crop_lo, S32,
-                               BETA).cpu().numpy()
+    img_plain = ds.idg_finish(main["gp"], g.n, shape[0], g.crop_lo, S32,
+                              BETA).cpu().numpy()
     err_img = rel_l2(crop75(img), crop75(img_plain))
     print(f"  image vs the route's plain pipeline: rel-L2 {err_img:.3e} "
           f"over the central 75% (bound {IMAGE_TOL}); vs phase 4's S=64 "
@@ -2019,20 +2020,20 @@ def tile_phases(torch, dev, card, vd, obs, img64, model, truth):
     # ---- 21c. the stage-timed pipeline at S=64 -----------------------------
     timer = PhaseTimer()
     reset()
-    img_st, _ = ds._idg_staged(uvw, f, vis, theta=THETA, lam=LAM,
-                               subgrid=SUBGRID, taper_beta=BETA, timer=timer)
+    img_st, _ = runs.idg_staged(uvw, f, vis, theta=THETA, lam=LAM,
+                                subgrid=SUBGRID, taper_beta=BETA, timer=timer)
     torch.cuda.synchronize()
     launches_st, launches_sst = route_launches(stream, idg_tile, "grid")
     err_st = rel_l2(crop75(img_st.cpu().numpy()), crop75(img64))
     stages = ", ".join(f"{k[7:]} {v * 1e3:.3f} ms"
                        for k, v in timer.times.items()
                        if k.startswith("device/") and "+compile" not in k)
-    print(f"staged S=64 (_idg_staged, in memory): vs phase 4's idg_image "
+    print(f"staged S=64 (idg_staged, in memory): vs phase 4's idg_image "
           f"rel-L2 {err_st:.3e} over the central 75% (bound {IMAGE_TOL}), "
           f"fixed-tile route launches {launches_st}, streamed "
           f"{launches_sst} (warm-up + timed); stages: {stages} [{card}]")
     if launches_st < 1 or launches_sst != launches_st:
-        raise AssertionError("_idg_staged did not launch the streamed "
+        raise AssertionError("idg_staged did not launch the streamed "
                              "gridder through the fixed-tile route")
     if not err_st <= IMAGE_TOL:
         raise AssertionError(f"staged image parity failed: {err_st}")
@@ -2456,13 +2457,13 @@ def aw48_phases(torch, dev, card, vd, obs, img64, model):
     kw = dict(theta=THETA, lam=LAM, subgrid=S, taper_beta=BETA, device=dev)
 
     # ---- 26a. #1 and #2 at S=48 on the main path's records ----------------
-    scr = ds._aw_screens(ak, S, THETA, LAM, None, SINGLE, dev)
+    scr = ds.antenna_screens(ak, S, THETA, LAM, None, SINGLE, dev)
     uvw, f, vis = ds.idg_inputs(vd, device=dev)
     a1, a2 = (torch.as_tensor(a.astype(np.int32), device=dev)
               for a in (vd.antenna1, vd.antenna2))
-    layout = ds._detect_time_major_layout(vd.antenna1, vd.antenna2, vd.time,
-                                          n_vis)
-    mr = ds._aw_run_bound(vd.antenna1, vd.antenna2, n_vis)
+    layout = ds.detect_time_major_layout(vd.antenna1, vd.antenna2, vd.time,
+                                         n_vis)
+    mr = ds.aw_run_bound(vd.antenna1, vd.antenna2, n_vis)
     ga, a1g, a2g = ds.aw_grid_inputs(uvw, a1, a2, f, vis, theta=THETA,
                                      lam=LAM, layout=layout)
     shape = ga.grid_shape
@@ -2834,8 +2835,10 @@ def run_surface_phases(torch, dev, card, vd, obs):
     from ska_sdp_tpu_torch.kernels import aw_fused, wproj
     from ska_sdp_tpu_torch.kernels import idg_aw_stream as stream
     from ska_sdp_tpu_torch.models import dataset as ds
+    from ska_sdp_tpu_torch.models import runs
     from ska_sdp_tpu_torch.ops.gridding import convgrid_wproj
     from ska_sdp_tpu_torch.types import SINGLE
+    from ska_sdp_tpu_torch.utils import hostmem
     from ska_sdp_tpu_torch.utils.timing import PhaseTimer
 
     n_vis = vd.vis.shape[0]
@@ -2854,26 +2857,26 @@ def run_surface_phases(torch, dev, card, vd, obs):
     a1, a2 = (torch.as_tensor(a.astype(np.int32), device=dev)
               for a in (vd.antenna1, vd.antenna2))
     ak64 = torch.as_tensor(ak, dtype=torch.complex64, device=dev)
-    scr = ds._aw_screens(ak, SUBGRID, THETA, LAM, None, SINGLE, dev)
-    mr = ds._aw_run_bound(vd.antenna1, vd.antenna2, n_vis)
+    scr = ds.antenna_screens(ak, SUBGRID, THETA, LAM, None, SINGLE, dev)
+    mr = ds.aw_run_bound(vd.antenna1, vd.antenna2, n_vis)
     one_shot = {
         "w": lambda: ds.w_image(vd, bank, centers, **kw),
         "aw": lambda: ds.aw_image(vd, bank, centers, ak, **kw),
         "aw_idg": lambda: ds.aw_idg_image(vd, ak, subgrid=SUBGRID,
                                           taper_beta=BETA, **kw)}
     staged = {
-        "w": (ds, "wproj_gridder", wproj, wproj.GRID_KERNEL, "scatter",
-              lambda t: ds._wproj_staged(bank_c, cent32, uvw, f, vis,
-                                         theta=THETA, lam=LAM, chunk=8192,
-                                         timer=t)),
+        "w": (runs, "wproj_gridder", wproj, wproj.GRID_KERNEL, "scatter",
+              lambda t: runs.wproj_staged(bank_c, cent32, uvw, f, vis,
+                                          theta=THETA, lam=LAM, chunk=8192,
+                                          timer=t)),
         "aw": (aw_fused, "aw_fused_grid", aw_fused, aw_fused.GRID_KERNEL,
                "aw-fused-kernel",
-               lambda t: ds._aw_fused_staged(bank64, cent32, ak64, uvw, a1,
-                                             a2, f, vis, theta=THETA,
-                                             lam=LAM, chunk=8192, timer=t)),
-        "aw_idg": (ds, "idg_aw_grid_from_records_stream", stream,
+               lambda t: runs.aw_fused_staged(bank64, cent32, ak64, uvw, a1,
+                                              a2, f, vis, theta=THETA,
+                                              lam=LAM, chunk=8192, timer=t)),
+        "aw_idg": (runs, "idg_aw_grid_from_records_stream", stream,
                    stream.GRID_KERNEL, "idg-aw-kernel",
-                   lambda t: ds._aw_idg_staged(
+                   lambda t: runs.aw_idg_staged(
                        scr, uvw, a1, a2, f, vis, theta=THETA, lam=LAM,
                        subgrid=SUBGRID, taper_beta=BETA, max_runs=mr,
                        timer=t))}
@@ -2970,7 +2973,7 @@ def run_surface_phases(torch, dev, card, vd, obs):
 
         return wrapper
 
-    copy = ds.HostCopy()        # what the checkpoint writer copies with
+    copy = hostmem.HostCopy()        # what the checkpoint writer copies with
 
     def to_host(grid, nxt):
         torch.cuda.synchronize()
@@ -3295,8 +3298,8 @@ def _scaleout(torch, dev, card, vd, obs, model, mesh):
         img = step(uvw, freq, vis)
         torch.cuda.synchronize()
         route, launches = route_launches(stream, idg_tile, "grid")
-        ref, _, _ = ds._idg_pipeline(uvw, f, vis, theta=THETA, lam=LAM,
-                                     subgrid=S, taper_beta=BETA)
+        ref, _, _ = ds.idg_pipeline(uvw, f, vis, theta=THETA, lam=LAM,
+                                    subgrid=S, taper_beta=BETA)
         img, ref = img.cpu().numpy(), ref.cpu().numpy()
         err = rel_l2(crop75(img), crop75(ref))
         print(f"sharded IDG step S={S}: image vs the unsharded chain on the "
@@ -3336,8 +3339,8 @@ def _scaleout(torch, dev, card, vd, obs, model, mesh):
     uvw_t, f_t, vis_t = ds.idg_inputs(t.vd, device=dev)
     a1 = torch.as_tensor(t.a1.astype(np.int32), device=dev)
     a2 = torch.as_tensor(t.a2.astype(np.int32), device=dev)
-    scr = ds._aw_screens(t.ak, SUBGRID, THETA, LAM, None, SINGLE, dev)
-    mr = ds._aw_run_bound(t.a1, t.a2, t.n)      # the rank's shard: all
+    scr = ds.antenna_screens(t.ak, SUBGRID, THETA, LAM, None, SINGLE, dev)
+    mr = ds.aw_run_bound(t.a1, t.a2, t.n)      # the rank's shard: all
     step = make["aw"](mesh, THETA, LAM, subgrid=SUBGRID, taper_beta=BETA,
                       max_runs=mr)
     calls = []
@@ -3346,10 +3349,10 @@ def _scaleout(torch, dev, card, vd, obs, model, mesh):
         img, nd = step(uvw_t, C, vis_t, a1, a2, scr)
         torch.cuda.synchronize()
     launches = stream.launch_count(stream.GRID_KERNEL)
-    ref, _, nd_ref = ds._aw_idg_pipeline(scr, uvw_t, a1, a2, f_t, vis_t,
-                                         theta=THETA, lam=LAM,
-                                         subgrid=SUBGRID, taper_beta=BETA,
-                                         max_runs=mr)
+    ref, _, nd_ref = ds.aw_idg_pipeline(scr, uvw_t, a1, a2, f_t, vis_t,
+                                        theta=THETA, lam=LAM,
+                                        subgrid=SUBGRID, taper_beta=BETA,
+                                        max_runs=mr)
     img, ref = img.cpu().numpy(), ref.cpu().numpy()
     err = rel_l2(crop75(img), crop75(ref))
     print(f"sharded IDG-AW step ({t.n} track records, 64 stations, random "
@@ -3618,7 +3621,7 @@ def cross_method_phase(torch, dev, card, vd, obs):
     scr = torch.as_tensor(aw_screens_host(ak, SUBGRID), dtype=torch.complex64,
                           device=dev)
     ak64 = torch.as_tensor(ak, dtype=torch.complex64, device=dev)
-    mr = ds._aw_run_bound(t.a1, t.a2, t.n)
+    mr = ds.aw_run_bound(t.a1, t.a2, t.n)
     calls_a, calls_i = [], []
     aw_fused.reset_launch_count()
     stream.reset_launch_count()

@@ -214,7 +214,7 @@ def idg_grid_cases(torch, dev):
 
     # the IDG-AW track shape with random screens (phase 9)
     t = aw_track_inputs()
-    scr = ds._aw_screens(t.ak, S, THETA, LAM, None, SINGLE, dev)
+    scr = ds.antenna_screens(t.ak, S, THETA, LAM, None, SINGLE, dev)
     uvw, f, vis = ds.idg_inputs(t.vd, device=dev)
     a1, a2 = (torch.as_tensor(a.astype(np.int32), device=dev)
               for a in (t.a1, t.a2))
@@ -223,7 +223,7 @@ def idg_grid_cases(torch, dev):
     recs = idg_aw_run_records(
         ga.grid_shape, ga.p, a1g, a2g, ga.w, ga.vis.real, ga.vis.imag,
         subgrid=S, support=SUPPORT,
-        max_runs=ds._aw_run_bound(t.vd.antenna1, t.vd.antenna2, t.n),
+        max_runs=ds.aw_run_bound(t.vd.antenna1, t.vd.antenna2, t.n),
         nant=t.nant)
     add("idg_grid, IDG-AW track shape", recs[:7], ga.grid_shape, scr,
         ga.theta)
@@ -274,7 +274,7 @@ def idg_degrid_cases(torch, dev):
 
     # the IDG-AW track shape with random screens (phase 9)
     t = aw_track_inputs()
-    scr = ds._aw_screens(t.ak, S, THETA, LAM, None, SINGLE, dev)
+    scr = ds.antenna_screens(t.ak, S, THETA, LAM, None, SINGLE, dev)
     uvw, f, vis = ds.idg_inputs(t.vd, device=dev)
     a1, a2 = (torch.as_tensor(a.astype(np.int32), device=dev)
               for a in (t.a1, t.a2))
@@ -284,7 +284,7 @@ def idg_degrid_cases(torch, dev):
                          taper_beta=BETA)
     recs = idg_aw_degrid_records(
         tuple(d.grid.shape), d.p, a1, a2, d.w, subgrid=S, support=SUPPORT,
-        max_runs=ds._aw_run_bound(t.vd.antenna1, t.vd.antenna2, t.n))
+        max_runs=ds.aw_run_bound(t.vd.antenna1, t.vd.antenna2, t.n))
     add("idg_degrid, IDG-AW track shape", recs[:7],
         _random_grid(torch, dev, tuple(d.grid.shape), 7), scr, d.theta)
     return cases

@@ -227,7 +227,9 @@ def _dispatch_distributed(args, cfg, timer, metrics, vis_path, wkern_path,
                   "--mode idg --channels N", file=sys.stderr)
             return 1
 
-        from .models.dataset import _bank, _write_image, get_wkernels
+        from .io.inputs import get_wkernels
+        from .models.dataset import bank_tensors
+        from .models.runs import write_image
         from .parallel import (load_vis_sharded, make_sharded_idg_step,
                                make_sharded_wproj_step)
 
@@ -239,8 +241,8 @@ def _dispatch_distributed(args, cfg, timer, metrics, vis_path, wkern_path,
             if args.mode == "w":
                 with timer.phase("ingest/wkern"):
                     wkerns, wbins = get_wkernels(wkern_path, theta)
-                bank, centers = _bank(wkerns, wbins, cfg.precision,
-                                      mesh.device)
+                bank, centers = bank_tensors(wkerns, wbins, cfg.precision,
+                                             mesh.device)
                 img = make_sharded_wproj_step(mesh, theta, lam)(
                     torch.conj(bank).resolve_conj(), centers, uvw, freq, vis)
             else:
@@ -249,7 +251,7 @@ def _dispatch_distributed(args, cfg, timer, metrics, vis_path, wkern_path,
                                                                   vis)
             img = img.cpu().numpy()
         mx = float(np.max(img))
-        _write_image(out, img, timer)
+        write_image(out, img, timer)
         print(f"image max: {mx}")
         metrics.emit("run/done", image_max=mx, phases=timer.times,
                      counters=_all_counters(timer))
@@ -293,8 +295,7 @@ def main(argv=None) -> int:
     import torch
 
     from .config import GridParams, ImagingConfig
-    from .models import dataset as ds
-    from .models import spectral
+    from .models import runs, spectral
     from .models.imaging import PSF_MODES
     from .utils.timing import PhaseTimer
 
@@ -374,47 +375,47 @@ def main(argv=None) -> int:
         elif args.mode == "predict":
             if w_bank:
                 phase = "w_predict"
-                pred, peak = ds.w_predict(wkern_path, vis_path, args.model,
-                                          **common)
+                pred, peak = runs.w_predict(wkern_path, vis_path, args.model,
+                                            **common)
             elif args.aterms:
                 phase = "aw_predict"
-                pred, peak = ds.aw_predict(akern_path, vis_path, args.model,
-                                           **common, **idg_opts)
+                pred, peak = runs.aw_predict(akern_path, vis_path, args.model,
+                                             **common, **idg_opts)
             else:
                 phase = "idg_predict"
-                pred, peak = ds.idg_predict(vis_path, args.model, **common,
-                                            **idg_opts)
+                pred, peak = runs.idg_predict(vis_path, args.model, **common,
+                                              **idg_opts)
             result = (f"predicted {pred.shape[0]} visibilities, peak "
                       f"|vis|: {peak}")
             done = dict(peak_vis=peak)
         else:
             if args.mode in PSF_MODES:
                 phase = "psf_gridding"
-                mx, _ = ds.psf_gridding(args.mode, vis_path, **common,
-                                        wstep=args.wstep)
+                mx, _ = runs.psf_gridding(args.mode, vis_path, **common,
+                                          wstep=args.wstep)
             elif w_bank and args.checkpoint:
                 phase = ("w_gridding_out_of_core" if args.out_of_core
                          else "w_gridding_checkpointed")
-                mx, _ = getattr(ds, phase)(wkern_path, vis_path,
-                                           args.checkpoint, **common,
-                                           slab=args.slab)
+                mx, _ = getattr(runs, phase)(wkern_path, vis_path,
+                                             args.checkpoint, **common,
+                                             slab=args.slab)
             elif w_bank:
                 phase = "w_gridding"
-                mx, _ = ds.w_gridding(
+                mx, _ = runs.w_gridding(
                     wkern_path, vis_path, **common,
                     device_phases=args.device_phases,
                     dump_intermediates=args.dump_intermediates)
             elif args.mode == "aw":
                 phase = "aw_gridding"
                 opts = idg_opts if args.idg else {}
-                mx, _ = ds.aw_gridding(None if args.idg else wkern_path,
-                                       akern_path, vis_path, idg=args.idg,
-                                       device_phases=args.device_phases,
-                                       **common, **opts)
+                mx, _ = runs.aw_gridding(None if args.idg else wkern_path,
+                                         akern_path, vis_path, idg=args.idg,
+                                         device_phases=args.device_phases,
+                                         **common, **opts)
             else:
                 phase = "idg_gridding"
-                mx, _ = ds.idg_gridding(vis_path, **common, **idg_opts,
-                                        device_phases=args.device_phases)
+                mx, _ = runs.idg_gridding(vis_path, **common, **idg_opts,
+                                          device_phases=args.device_phases)
             result = f"image max: {mx}"
             done = dict(image_max=mx)
     except (FileNotFoundError, ValueError, KeyError,

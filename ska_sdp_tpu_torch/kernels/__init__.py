@@ -38,7 +38,7 @@ from ..ops.idg_aw import auto_fit_margin
 from ..utils.timing import COUNTERS
 from .idg_aw_records import STREAM_SUBGRIDS
 from .aw_fused import aw_gridder
-from .idg_aw_stream import (_check_subgrid, idg_aw_degridder_stream,
+from .idg_aw_stream import (check_subgrid, idg_aw_degridder_stream,
                             idg_aw_gridder_stream)
 from .idg_tile import idg_degrid_tile, idg_gridder_tile
 from .wproj import wproj_degridder, wproj_gridder
@@ -68,7 +68,7 @@ def reset_drop_counters() -> None:
     _warned.clear()
 
 
-def _note_drops(kind: str, n_dropped: int, reason: str) -> None:
+def note_drops(kind: str, n_dropped: int, reason: str) -> None:
     """Count ``n_dropped`` under ``dropped/<kind>`` and warn once per
     gridder."""
     if n_dropped <= 0:
@@ -173,7 +173,7 @@ def idg_aw_gridder(grid_shape, p, a1, a2, w, vis, screens, *, theta: float,
     lives in device memory, so there is no banded route.  Raises
     ``ValueError`` for an S the kernels do not take (odd, or outside 2 to
     128) or one whose fit margin is not positive."""
-    _check_subgrid(subgrid)
+    check_subgrid(subgrid)
     return idg_aw_gridder_stream(
         grid_shape, p, a1, a2, w, vis, screens, theta=theta,
         subgrid=subgrid, support=support, taper_beta=taper_beta,
@@ -188,9 +188,9 @@ def idg_aw_degridder(grid_shape, p, a1, a2, w, grid, screens, *,
     terms), the exact adjoint of :func:`idg_aw_gridder`, through the
     streamed CUDA degridder.  Returns ``(vis [n] complex64, n_dropped)``;
     dropped records predict 0 and callers count them with
-    :func:`_note_drops`.  Takes the subgrids :func:`idg_aw_gridder`
+    :func:`note_drops`.  Takes the subgrids :func:`idg_aw_gridder`
     takes."""
-    _check_subgrid(subgrid)
+    check_subgrid(subgrid)
     return idg_aw_degridder_stream(
         grid_shape, p, a1, a2, w, grid, screens, theta=theta,
         subgrid=subgrid, support=support, taper_beta=taper_beta,

@@ -18,7 +18,6 @@ padded ``[8, n_pad]`` TPU layout is not kept.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from ..ops.idg_aw import PAIR_SHIFT, SENTINEL, _record_keys, auto_fit_margin
@@ -224,28 +223,6 @@ def idg_aw_records_for_channel(base, vis_c, ratio, *, subgrid: int = 64,
     return recs, n_masked
 
 
-def from_jax_run_records(recs, starts, ends, y0, x0, ia1, ia2, n_dropped,
-                         device=None):
-    """The port's run records from the reference prep's numpy outputs.
-
-    ``recs`` is the reference's ``[8, n_pad]`` rows layout or its
-    ``[nblk, 8, C]`` blocks layout; the three zero rows are dropped and the
-    padding records (zero visibilities, outside every run) are kept.
-    Returns the first eight entries of :func:`idg_aw_run_records`.
-    """
-    r = np.asarray(recs, np.float32)
-    if r.ndim == 3:
-        r = r.transpose(1, 0, 2).reshape(8, -1)
-    rows = torch.as_tensor(np.array(r[:5]), device=device)
-
-    def i32(a):
-        return torch.as_tensor(np.array(a, np.int32), device=device)
-
-    return (rows, i32(starts), i32(ends), i32(y0), i32(x0), i32(ia1),
-            i32(ia2), torch.as_tensor(int(np.asarray(n_dropped)),
-                                      device=device))
-
-
 def idg_aw_degrid_records(grid_shape, p, a1, a2, w, *, subgrid: int = 64,
                           support: int = 15, max_runs: int = 4096,
                           fit_margin: int = 0):
@@ -279,22 +256,3 @@ def idg_aw_degrid_records(grid_shape, p, a1, a2, w, *, subgrid: int = 64,
                  + torch.sum(overflow & (pk_s < SENTINEL)))
     return (recs, starts_ext, y0, x0, ia1, ia2, perm.to(torch.int32),
             valid & fit, n_dropped)
-
-
-def from_jax_degrid_records(recs, starts_ext, y0, x0, ia1, ia2, order_s,
-                            use, n_dropped, device=None):
-    """The port's degrid records from the reference prep's numpy outputs
-    (``idg_aw_degrid_records``): the ``[nblk, 8, C]`` blocks become
-    ``[3, n]`` rows (the padding records, outside every run, are cut).
-    Returns the tuple of :func:`idg_aw_degrid_records`."""
-    order = np.asarray(order_s, np.int32)
-    n = order.shape[0]
-    r = np.asarray(recs, np.float32).transpose(1, 0, 2).reshape(8, -1)
-
-    def i32(a):
-        return torch.as_tensor(np.array(a, np.int32), device=device)
-
-    return (torch.as_tensor(np.array(r[:3, :n]), device=device),
-            i32(starts_ext), i32(y0), i32(x0), i32(ia1), i32(ia2), i32(order),
-            torch.as_tensor(np.array(use, bool), device=device),
-            torch.as_tensor(int(np.asarray(n_dropped)), device=device))

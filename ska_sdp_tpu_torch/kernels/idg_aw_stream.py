@@ -88,7 +88,7 @@ def padded_side(S: int) -> int:
     return -(-S // 16) * 16
 
 
-def _check_subgrid(S: int) -> None:
+def check_subgrid(S: int) -> None:
     if S < 2 or S % 2 or S > MAX_SUBGRID:
         raise ValueError(f"subgrid {S}: the streamed kernels take an even "
                          f"subgrid from 2 to {MAX_SUBGRID}")
@@ -379,7 +379,7 @@ def _grid_from_records_cuda(recs, starts, ends, y0, x0, ia1, ia2, screens,
     dev = recs.device
     # zeroed first: the card clears the grid while the host checks
     out = torch.zeros((HP, WP), dtype=torch.complex64, device=dev)
-    _check_subgrid(S)
+    check_subgrid(S)
     runs = (starts, ends, y0, x0, ia1, ia2)
     _check_cuda_inputs(recs, runs, screens, S)
     planes = _dft_planes(S, taper_beta, dev)
@@ -413,7 +413,7 @@ def _degrid_from_records_cuda(recs, starts, ends, y0, x0, ia1, ia2, order_s,
     ``[N, Nx]`` model grid, at the runs' padded origins (zero outside it).
     Raises on bad inputs and on a refused launch."""
     S = subgrid
-    _check_subgrid(S)
+    check_subgrid(S)
     runs = (starts, ends, y0, x0, ia1, ia2)
     _check_cuda_inputs(recs, runs, screens, S, rows=3)
     n = recs.shape[1]

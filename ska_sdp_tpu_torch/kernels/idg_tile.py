@@ -34,7 +34,7 @@ vis_im)`` sorted by subgrid id, with ``starts`` ``[n_sub + 1]`` int32 (the
 excluded records sort last, past ``starts[-1]``); the degridder's are
 ``[3, n]`` rows ``(dy, dx, w)`` with ``order`` (the original index of each
 sorted record) and ``valid``.  The reference's ``[nblk, 8, 256]`` TPU
-packing is not kept (:func:`from_jax_tile_records` converts it).
+packing is not kept.
 
 The wrappers launch the streamed CUDA kernels for CUDA tensors and use
 the plain versions only for CPU tensors; they never fall back.
@@ -45,7 +45,6 @@ from __future__ import annotations
 import functools
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from ..utils.timing import launch_counters, launched, readback, span
@@ -226,28 +225,6 @@ def prep_with_order(grid_shape, p, w, *, subgrid: int = 64,
     perm, starts = _sort_csr(t, geo.n_sub)
     recs = torch.stack([dy, dx, w.to(torch.float32)])[:, perm].contiguous()
     return recs, starts, perm.to(torch.int32), valid
-
-
-def from_jax_tile_records(recs, starts, order=None, valid=None,
-                          device=None):
-    """The port's records from the reference prep's numpy outputs.
-
-    ``recs`` is the reference's ``[nblk, 8, 256]`` blocks layout (or ``[8,
-    n_pad]`` rows).  Without ``order``: the gridder's ``(recs [5, n_pad],
-    starts)`` of ``idg_bin_records``; the padding records lie past
-    ``starts[-1]``, in no subgrid.  With ``order`` and ``valid`` (from
-    ``_prep_with_order``): the degridder's ``(recs [3, n], starts, order,
-    valid)``, cut to the ``n`` records."""
-    r = np.asarray(recs, np.float32)
-    if r.ndim == 3:
-        r = r.transpose(1, 0, 2).reshape(8, -1)
-    st = torch.as_tensor(np.array(starts, np.int32), device=device)
-    if order is None:
-        return torch.as_tensor(np.array(r[:5]), device=device), st
-    od = np.array(order, np.int32)
-    return (torch.as_tensor(np.array(r[:3, :od.shape[0]]), device=device),
-            st, torch.as_tensor(od, device=device),
-            torch.as_tensor(np.array(valid, bool), device=device))
 
 
 class TileRuns(NamedTuple):

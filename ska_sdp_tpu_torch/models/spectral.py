@@ -46,10 +46,11 @@ import torch
 
 from ..config import ImagingConfig
 from ..io import h5, schema
+from ..io.inputs import VisData, get_akernels, get_wkernels, load_vis_data
 from ..kernels import wproj_gridder
 from ..kernels.idg_aw_records import (idg_aw_records_for_channel,
                                       idg_aw_run_records_multi)
-from ..kernels.idg_aw_stream import (_check_subgrid,
+from ..kernels.idg_aw_stream import (check_subgrid,
                                      idg_aw_grid_from_records_stream)
 from ..kernels.idg_tile import (idg_bin_records_multi, idg_grid_from_records,
                                 idg_records_for_channel)
@@ -57,10 +58,11 @@ from ..ops import (doweight, ifft_centered, make_grid_hermitian, uvw_lambda)
 from ..ops.idg import fov_pad_geometry
 from ..ops.search import find_closest
 from ..types import precision as _precision
-from ..utils.timing import PhaseTimer, _block
-from .dataset import (VisData, _aw_screens, _bank, _detect_time_major_layout,
-                      _idg_finish, _vis_chunk, get_akernels, get_wkernels,
-                      load_vis_data, to_device)
+from ..utils import hostmem
+from ..utils.timing import PhaseTimer, block_until_ready
+from .dataset import (ant_ids, antenna_screens, bank_tensors,
+                      detect_time_major_layout, id_tensors, idg_finish,
+                      pair_count, vis_chunk)
 
 C_LIGHT = 299792458.0
 SUPPORT = 15
@@ -109,7 +111,7 @@ def uv_extent_cells(uvw, f_top: float, lam: float, n_grid: int) -> float:
 
 def _exact_weights() -> bool:
     """``SKA_SDP_TPU_EXACT_WEIGHTS=1``: one uniform-weight histogram per
-    channel (see :func:`_group_inputs`); read per call."""
+    channel (see :func:`group_inputs`); read per call."""
     return os.environ.get("SKA_SDP_TPU_EXACT_WEIGHTS", "0") == "1"
 
 
@@ -127,8 +129,8 @@ class CubeImage(NamedTuple):
 # ---------------------------------------------------------------------------
 
 
-def _group_inputs(uvw, f_ref, ratios, vis_mc, *, theta: float, lam: int,
-                  exact: bool):
+def group_inputs(uvw, f_ref, ratios, vis_mc, *, theta: float, lam: int,
+                 exact: bool):
     """A group's gridder inputs: uvw in wavelengths at the reference
     channel, mirrored into v ≥ 0 (by channel 0's geometry, which every
     channel shares), and each channel's weighted, mirrored visibilities
@@ -164,8 +166,8 @@ def _idg_multi_pipeline(uvw, f_ref, ratios, vis_mc, *, theta: float,
     counts include the prep's own drops."""
     n_t, n_grid, theta_g, crop_lo = fov_pad_geometry(theta, lam, fov_pad)
     shape = (n_grid, n_grid)
-    uvw1, vis1 = _group_inputs(uvw, f_ref, ratios, vis_mc, theta=theta,
-                               lam=lam, exact=exact_weights)
+    uvw1, vis1 = group_inputs(uvw, f_ref, ratios, vis_mc, theta=theta,
+                              lam=lam, exact=exact_weights)
     p, w = uvw1 / lam, uvw1[:, 2]
     margin_full = subgrid // 2 - SUPPORT // 2 - 12
     tc = max(2 * (margin_full - drift_cells) - 2, 8)
@@ -187,8 +189,8 @@ def _idg_multi_pipeline(uvw, f_ref, ratios, vis_mc, *, theta: float,
             guv = idg_aw_grid_from_records_stream(
                 recs, st, en, y0, x0, i1, i2, shape, unit, theta=theta_g,
                 subgrid=subgrid, taper_beta=taper_beta)
-            imgs.append(_idg_finish(guv, n_t, n_grid, crop_lo, subgrid,
-                                    taper_beta, uvw.dtype))
+            imgs.append(idg_finish(guv, n_t, n_grid, crop_lo, subgrid,
+                                   taper_beta, uvw.dtype))
             masked.append(nm + nd0)
     else:
         branch = "tile"
@@ -201,8 +203,8 @@ def _idg_multi_pipeline(uvw, f_ref, ratios, vis_mc, *, theta: float,
             guv = idg_grid_from_records(recs, starts, shape, theta=theta_g,
                                         subgrid=subgrid,
                                         taper_beta=taper_beta)
-            imgs.append(_idg_finish(guv, n_t, n_grid, crop_lo, subgrid,
-                                    taper_beta, uvw.dtype))
+            imgs.append(idg_finish(guv, n_t, n_grid, crop_lo, subgrid,
+                                   taper_beta, uvw.dtype))
             masked.append(nm)
     return torch.stack(imgs), torch.stack(masked), branch
 
@@ -232,11 +234,11 @@ def _idg_aw_multi_pipeline(screens, uvw, a1, a2, f_ref, ratios, vis_mc, *,
     transposed to pair-major on the device so the prep skips its sort.
     Returns ``(cube [g, n, n], dropped [g] int64)``, each channel's count
     the prep's drops plus its own recheck's."""
-    _check_subgrid(subgrid)
+    check_subgrid(subgrid)
     n_t, n_grid, theta_g, crop_lo = fov_pad_geometry(theta, lam, fov_pad)
     shape = (n_grid, n_grid)
-    uvw1, vis1 = _group_inputs(uvw, f_ref, ratios, vis_mc, theta=theta,
-                               lam=lam, exact=exact_weights)
+    uvw1, vis1 = group_inputs(uvw, f_ref, ratios, vis_mc, theta=theta,
+                              lam=lam, exact=exact_weights)
     if layout is not None:
         uvw1 = _pair_major(uvw1, layout)
         a1, a2 = _pair_major(a1, layout), _pair_major(a2, layout)
@@ -255,8 +257,8 @@ def _idg_aw_multi_pipeline(screens, uvw, a1, a2, f_ref, ratios, vis_mc, *,
         guv = idg_aw_grid_from_records_stream(
             recs, st, en, y0, x0, i1, i2, shape, scr, theta=theta_g,
             subgrid=subgrid, taper_beta=taper_beta)
-        imgs.append(_idg_finish(guv, n_t, n_grid, crop_lo, subgrid,
-                                taper_beta, uvw.dtype))
+        imgs.append(idg_finish(guv, n_t, n_grid, crop_lo, subgrid,
+                               taper_beta, uvw.dtype))
         dropped.append(nm + nd0)
     return torch.stack(imgs), torch.stack(dropped)
 
@@ -269,8 +271,8 @@ def _wproj_multi_pipeline(bank_conj, wbins, uvw, f_ref, ratios, vis_mc, *,
     (``p = uvw·r/lam``, the plane closest to ``w·r``) through the conjugated
     bank.  Returns the cube ``[g, n, n]``."""
     n_grid = int(round(theta * lam))
-    uvw1, vis1 = _group_inputs(uvw, f_ref, ratios, vis_mc, theta=theta,
-                               lam=lam, exact=exact_weights)
+    uvw1, vis1 = group_inputs(uvw, f_ref, ratios, vis_mc, theta=theta,
+                              lam=lam, exact=exact_weights)
     imgs = []
     for c in range(vis1.shape[0]):
         r = ratios[c]
@@ -312,9 +314,9 @@ def _cube_inputs(vis_data: VisData, channels, n, prec, device):
     nfreq = vis_data.frequencies.shape[0]
     nch = nfreq if channels is None else min(channels, nfreq)
     freqs = np.asarray(vis_data.frequencies[:nch], np.float64)
-    uvw = to_device(vis_data.uvw[:n], device, np_dtype=prec.np_real)
-    vis = to_device(vis_data.vis_chan[:n, :nch], device,
-                    np_dtype=prec.np_complex)
+    uvw = hostmem.to_device(vis_data.uvw[:n], device, np_dtype=prec.np_real)
+    vis = hostmem.to_device(vis_data.vis_chan[:n, :nch], device,
+                            np_dtype=prec.np_complex)
     return n, freqs, uvw, vis.T.contiguous()
 
 
@@ -367,7 +369,7 @@ def idg_cube(vis_data: VisData, *, channels: Optional[int] = None,
             imgs.append(img)
             drops.append(masked)
             branches.append(branch)
-        _block(imgs)
+        block_until_ready(imgs)
     return _cube(imgs, drops, n, timer, groups, branches)
 
 
@@ -386,14 +388,11 @@ def aw_idg_cube(vis_data: VisData, akerns, *, channels: Optional[int] = None,
     prec = _precision(precision)
     with timer.phase("host/prep"):
         n, freqs, uvw, vis = _cube_inputs(vis_data, channels, n, prec, device)
-        a1 = np.asarray(vis_data.antenna1[:n], np.int64)
-        a2 = np.asarray(vis_data.antenna2[:n], np.int64)
-        a1_d = torch.as_tensor(a1.astype(np.int32), device=uvw.device)
-        a2_d = torch.as_tensor(a2.astype(np.int32), device=uvw.device)
-        npair = int(torch.unique(a1_d.to(torch.int64) * 2**32
-                                 + a2_d.to(torch.int64)).numel())
+        a1, a2 = ant_ids(vis_data, n)
+        a1_d, a2_d = id_tensors((a1, a2), uvw.device)
+        npair = pair_count(a1_d, a2_d)
         n_t, n_grid, _, _ = fov_pad_geometry(theta, lam, fov_pad)
-        layout = _detect_time_major_layout(a1, a2, vis_data.time, n)
+        layout = detect_time_major_layout(a1, a2, vis_data.time, n)
         ext = uv_extent_cells(vis_data.uvw[:n], float(freqs.max()), lam,
                               n_grid)
         margin_full = subgrid // 2 - SUPPORT // 2 - 12
@@ -404,8 +403,8 @@ def aw_idg_cube(vis_data: VisData, akerns, *, channels: Optional[int] = None,
     with timer.phase("compile+grid+fft"):
         for (i, j, f_ref, drift) in groups:
             ak = akerns(f_ref) if callable(akerns) else akerns
-            screens = _aw_screens(ak, subgrid, theta, lam, fov_pad, prec,
-                                  uvw.device)
+            screens = antenna_screens(ak, subgrid, theta, lam, fov_pad,
+                                      prec, uvw.device)
             # smaller tiles under drift: more runs per pair track
             tile_scale = max(1, (2 * margin_full - 2)
                              // max(2 * (margin_full - drift) - 2, 2))
@@ -418,7 +417,7 @@ def aw_idg_cube(vis_data: VisData, akerns, *, channels: Optional[int] = None,
                 fov_pad=fov_pad, layout=layout, exact_weights=exact)
             imgs.append(img)
             drops.append(nd)
-        _block(imgs)
+        block_until_ready(imgs)
     return _cube(imgs, drops, n, timer, groups, ["stream"] * len(groups))
 
 
@@ -435,15 +434,15 @@ def w_cube(vis_data: VisData, wkerns, wbins, *,
     prec = _precision(precision)
     with timer.phase("host/prep"):
         n, freqs, uvw, vis = _cube_inputs(vis_data, channels, n, prec, device)
-        bank, wb = _bank(wkerns, wbins, prec, uvw.device)
+        bank, wb = bank_tensors(wkerns, wbins, prec, uvw.device)
         f_ref = 0.5 * (freqs[0] + freqs[-1])
     with timer.phase("compile+grid+fft"):
         cube = _wproj_multi_pipeline(
             torch.conj(bank).resolve_conj(), wb, uvw, f_ref,
             _ratios(freqs, 0, freqs.shape[0], f_ref, prec, uvw.device), vis,
-            theta=theta, lam=lam, chunk=_vis_chunk(n),
+            theta=theta, lam=lam, chunk=vis_chunk(n),
             exact_weights=_exact_weights())
-        _block(cube)
+        block_until_ready(cube)
     nch = freqs.shape[0]
     zero = torch.zeros((nch,), dtype=torch.int64)
     return _cube([cube], [zero], n, timer, [(0, nch, f_ref, 0)], ["wproj"])
@@ -493,10 +492,10 @@ def idg_cube_sharded(vis_data: VisData, mesh, *,
         slack = (subgrid - SUPPORT) // 2 - subgrid // 4 - 1
         groups = plan_channel_groups(freqs, ext, max(slack, 1))
     with timer.phase("h2d/shard"):
-        uvw = torch.as_tensor(uvw_h[sl], device=mesh.device)
-        mask = torch.as_tensor(mask_h[sl], device=mesh.device)
-        vis = torch.as_tensor(np.ascontiguousarray(vis_h[:, sl]),
-                              device=mesh.device)
+        uvw = hostmem.to_device(uvw_h[sl], mesh.device)
+        mask = hostmem.to_device(mask_h[sl], mesh.device)
+        vis = hostmem.to_device(vis_h[:, sl], mesh.device,
+                                np_dtype=prec.np_complex)
     imgs = []
     with timer.phase("compile+grid+fft"):
         for (i, j, f_ref, _) in groups:
@@ -506,7 +505,7 @@ def idg_cube_sharded(vis_data: VisData, mesh, *,
             imgs.append(step(uvw, mask, float(np.asarray(f_ref, prec.np_real)),
                              _ratios(freqs, i, j, f_ref, prec, mesh.device),
                              vis[i:j]))
-        _block(imgs)
+        block_until_ready(imgs)
     zero = torch.zeros((nch,), dtype=torch.int64)
     return _cube(imgs, [zero], n, timer, groups, ["sharded"] * len(groups))
 

@@ -60,9 +60,9 @@ def _crop(a):
 def run_checks(mesh) -> None:
     """Every sharded step on ``mesh`` against the unsharded chain on the
     whole problem; raises on the first disagreement."""
-    from ..models.dataset import (_aw_idg_pipeline, _idg_pipeline,
-                                  _wproj_pipeline)
-    from ..models.spectral import _group_inputs
+    from ..models.dataset import (aw_idg_pipeline, idg_pipeline,
+                                  wproj_pipeline)
+    from ..models.spectral import group_inputs
     from ..ops.idg_aw import aw_screens_host
     from . import sharded
     from .mesh import shard_range
@@ -75,16 +75,16 @@ def run_checks(mesh) -> None:
     rows = slice(mesh.rank * (n // P), (mesh.rank + 1) * (n // P))
 
     # w-projection, replicated finish: the reference dry run's tolerance
-    ref, _ = _wproj_pipeline(bank_c, centers, uvw, f, vis, theta=THETA,
-                             lam=LAM, chunk=64)
+    ref, _ = wproj_pipeline(bank_c, centers, uvw, f, vis, theta=THETA,
+                            lam=LAM, chunk=64)
     img = sharded.make_sharded_wproj_step(mesh, THETA, LAM, chunk=64)(
         bank_c, centers, uvw[sl], C, vis[sl])
     _close(img, ref, 1e-5, 1e-5, "sharded w step")
 
     # IDG at S=32 (the fixed-tile route), central 75%: outside it the
     # taper division amplifies summation-order rounding
-    ref_idg, _, _ = _idg_pipeline(uvw, f, vis, theta=THETA, lam=LAM,
-                                  subgrid=32, taper_beta=12.0)
+    ref_idg, _, _ = idg_pipeline(uvw, f, vis, theta=THETA, lam=LAM,
+                                 subgrid=32, taper_beta=12.0)
     img = sharded.make_sharded_idg_step(mesh, THETA, LAM, subgrid=32)(
         uvw[sl], C, vis[sl])
     _close(_crop(img), _crop(ref_idg), 1e-4, 1e-4, "sharded IDG step")
@@ -98,9 +98,9 @@ def run_checks(mesh) -> None:
     a1 = torch.as_tensor(np.random.default_rng(5).integers(
         0, nant - 1, uvw.shape[0]), dtype=torch.int32)
     a2 = a1 + 1
-    ref_aw, _, nd_ref = _aw_idg_pipeline(scr, uvw, a1, a2, f, vis,
-                                         theta=THETA, lam=LAM, subgrid=64,
-                                         max_runs=2048)
+    ref_aw, _, nd_ref = aw_idg_pipeline(scr, uvw, a1, a2, f, vis,
+                                        theta=THETA, lam=LAM, subgrid=64,
+                                        max_runs=2048)
     img, nd = sharded.make_sharded_idg_aw_step(
         mesh, THETA, LAM, subgrid=64, max_runs=2048)(
         uvw[sl], C, vis[sl], a1[sl], a2[sl], scr)
@@ -118,8 +118,8 @@ def run_checks(mesh) -> None:
     cube = sharded.make_sharded_spectral_idg_step(
         mesh, THETA, LAM, g=2, subgrid=32)(uvw[sl], mask[sl], f_ref, ratios,
                                            vis_mc[:, sl])
-    uvw1, vis1 = _group_inputs(uvw, f_ref, ratios, vis_mc, theta=THETA,
-                               lam=LAM, exact=False)
+    uvw1, vis1 = group_inputs(uvw, f_ref, ratios, vis_mc, theta=THETA,
+                              lam=LAM, exact=False)
     for c in range(2):
         ref_c, _ = _idg_channel(uvw1, vis1[c], ratios[c], n)
         _close(_crop(cube[c]), _crop(ref_c), 1e-4, 1e-4,
@@ -139,11 +139,11 @@ def _idg_channel(uvw1, vis1, r, n):
     """One channel of the unsharded chain: the IDG gridder at the
     channel's dilated coordinates, then the IDG finish."""
     from ..kernels import idg_gridder
-    from ..models.dataset import _idg_finish
+    from ..models.dataset import idg_finish
 
     guv, nd = idg_gridder((n, n), uvw1 * r / LAM, uvw1[:, 2] * r, vis1,
                           theta=THETA, subgrid=32, taper_beta=12.0)
-    return _idg_finish(guv, n, n, 0, 32, 12.0), nd
+    return idg_finish(guv, n, n, 0, 32, 12.0), nd
 
 
 def free_port() -> int:

@@ -10,10 +10,11 @@ shard, on its device, and feed the ``parallel.sharded`` steps directly.
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 from ..io import h5, schema
+from ..io.inputs import flat_vis_reader, vis_record_geometry
 from ..types import precision as _precision
+from ..utils import hostmem
 from .mesh import Mesh, shard_range
 
 
@@ -23,8 +24,6 @@ def load_vis_sharded(datfile: str, mesh: Mesh, n: int | None = None,
     tensors on ``mesh.device`` in the run's precision and the first
     channel's frequency in Hz.  ``n`` (default every record) is truncated
     to a multiple of the mesh size."""
-    from ..models.dataset import vis_record_geometry
-
     prec = _precision(precision)
     n_total, nbl, nch = vis_record_geometry(datfile)
     n = min(n, n_total) if n is not None else n_total
@@ -33,14 +32,9 @@ def load_vis_sharded(datfile: str, mesh: Mesh, n: int | None = None,
     s0, count = sl.start, sl.stop - sl.start
 
     uvw = h5.read_dataset_slice(datfile, schema.VIS_UVW, s0, count)
-    t0 = s0 // nbl
-    t1 = (s0 + count - 1) // nbl + 1
-    block = np.asarray(h5.read_dataset_slice(
-        datfile, schema.VIS_VIS, t0, t1 - t0)).reshape(-1, nch)[:, 0]
-    off = s0 - t0 * nbl
-    vis = block[off:off + count]
+    vis = flat_vis_reader(datfile, nbl, nch)(s0, count)
     freq = float(np.asarray(
         h5.read_dataset(datfile, schema.VIS_FREQUENCY)).ravel()[0])
-    return (torch.as_tensor(np.asarray(uvw, prec.np_real), device=mesh.device),
-            torch.as_tensor(np.asarray(vis, prec.np_complex),
-                            device=mesh.device), freq)
+    return (hostmem.to_device(uvw, mesh.device, np_dtype=prec.np_real),
+            hostmem.to_device(vis, mesh.device, np_dtype=prec.np_complex),
+            freq)

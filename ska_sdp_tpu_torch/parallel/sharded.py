@@ -27,7 +27,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels import idg_aw_gridder, idg_gridder, wproj_gridder
-from ..models.dataset import _idg_finish, _predict_pipeline
+from ..models.dataset import idg_finish, predict_pipeline
 from ..ops import (doweight, ifft_centered, make_grid_hermitian, mirror_uvw,
                    uvw_lambda)
 from ..ops.search import find_closest
@@ -148,8 +148,8 @@ def make_sharded_idg_step(mesh: Mesh, theta: float, lam: int,
         part, _ = idg_gridder((n, n), uvw1 / lam, uvw1[:, 2], vis1,
                               theta=theta, subgrid=subgrid,
                               taper_beta=taper_beta)
-        return _idg_finish(all_reduce_(part, mesh), n, n, 0, subgrid,
-                           taper_beta, uvw.dtype)
+        return idg_finish(all_reduce_(part, mesh), n, n, 0, subgrid,
+                          taper_beta, uvw.dtype)
 
     return step
 
@@ -161,8 +161,8 @@ def make_sharded_predict_step(mesh: Mesh, theta: float, lam: int,
     (``kernels.wproj_degridder``); no collective."""
 
     def step(bank, centers, img, uvw, freq):
-        return _predict_pipeline(bank, centers, img, uvw, freq, theta=theta,
-                                 lam=lam, chunk=chunk)
+        return predict_pipeline(bank, centers, img, uvw, freq, theta=theta,
+                                lam=lam, chunk=chunk)
 
     return step
 
@@ -241,8 +241,8 @@ def make_sharded_spectral_idg_step(mesh: Mesh, theta: float, lam: int,
                                   theta=theta, subgrid=subgrid,
                                   taper_beta=taper_beta)
             grids.append(all_reduce_(part, mesh))
-        return _idg_finish(torch.stack(grids), n, n, 0, subgrid, taper_beta,
-                           uvw.dtype)
+        return idg_finish(torch.stack(grids), n, n, 0, subgrid, taper_beta,
+                          uvw.dtype)
 
     return step
 
@@ -264,7 +264,7 @@ def make_sharded_idg_aw_step(mesh: Mesh, theta: float, lam: int,
                                   subgrid=subgrid, taper_beta=taper_beta,
                                   max_runs=max_runs)
         nd = all_reduce_(nd.to(torch.int64).reshape(1).clone(), mesh)[0]
-        return _idg_finish(all_reduce_(part, mesh), n, n, 0, subgrid,
-                           taper_beta, uvw.dtype), nd
+        return idg_finish(all_reduce_(part, mesh), n, n, 0, subgrid,
+                          taper_beta, uvw.dtype), nd
 
     return step

@@ -1,4 +1,5 @@
-"""Page-locked host buffers for the entries' host-to-device copies.
+"""The host side of the copies to and from the card: :func:`to_device`,
+the one path of a caller's array to the card, and :class:`HostCopy`.
 
 An array a caller hands to an entry on every call (a major cycle's uvw
 and antenna ids, a snapshot's visibilities) is copied to the card from
@@ -33,7 +34,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
-from .timing import COUNTERS, span
+from .timing import COUNTERS, add, span
 
 # the numpy dtypes of the entries' inputs, and torch's names for them
 TORCH_DTYPE = {np.dtype(k): v for k, v in (
@@ -203,3 +204,56 @@ def pinned_copy(x, device) -> Optional[Tuple[torch.Tensor, int]]:
     t = torch.from_numpy(run).to(device, non_blocking=True)
     return (t.as_strided(x.shape, [s // item for s in x.strides])
             .contiguous(), hi - lo)
+
+
+def to_device(x, device, *, np_dtype=None, dtype=None) -> torch.Tensor:
+    """``torch.as_tensor(x, dtype=dtype, device=device)`` after the host
+    cast ``np.ascontiguousarray(x, np_dtype)`` when ``np_dtype`` is given,
+    bit for bit.  On a CUDA device a numpy array whose buffer is
+    registered as page-locked (:data:`REGISTRY`: handed over before) is
+    copied asynchronously in its own dtype and cast on the card; the
+    entries' readbacks wait for the copy.  Anything else takes the host
+    cast (span ``sdp.host_prep.cast``) and a pageable copy.  The bytes
+    copied from host memory to a card count in the open spans'
+    ``h2d_bytes``, those from registered memory also in
+    ``h2d_registered_bytes``; a tensor already on a card, or one that
+    stays on the host, counts 0.  ``timing.COUNTERS`` counts the copies
+    ``h2d/registered`` and ``h2d/pageable``."""
+    got = (pinned_copy(x, device)
+           if torch.device(device).type == "cuda" else None)
+    if got is not None:
+        t, nbytes = got
+        add("h2d_bytes", nbytes)
+        add("h2d_registered_bytes", nbytes)
+        COUNTERS.add("h2d/registered")
+        if np_dtype is not None:
+            t = t.to(TORCH_DTYPE[np.dtype(np_dtype)])
+        return t if dtype is None else t.to(dtype)
+    if np_dtype is not None:
+        with span("sdp.host_prep.cast", host_only=True):
+            x = np.ascontiguousarray(x, np_dtype)
+    t = torch.as_tensor(x, dtype=dtype, device=device)
+    if t.device.type != "cpu" and not (isinstance(x, torch.Tensor)
+                                       and x.device.type != "cpu"):
+        add("h2d_bytes", t.numel() * t.element_size())
+        COUNTERS.add("h2d/pageable")
+    return t
+
+
+class HostCopy:
+    """The host side of a slab callback: ``copy(grid)`` copies the grid
+    into one host buffer reused from slab to slab, page-locked when the
+    grid is on a CUDA device (a pageable copy of a 2400² grid runs at a
+    fraction of the link's rate), and returns it as numpy.  The next copy
+    overwrites it."""
+
+    def __init__(self):
+        self._buf: Optional[torch.Tensor] = None
+
+    def __call__(self, grid: torch.Tensor) -> np.ndarray:
+        buf = self._buf
+        if buf is None or buf.shape != grid.shape or buf.dtype != grid.dtype:
+            buf = self._buf = torch.empty(grid.shape, dtype=grid.dtype,
+                                          pin_memory=grid.is_cuda)
+        buf.copy_(grid)
+        return buf.numpy()

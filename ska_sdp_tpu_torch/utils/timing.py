@@ -183,7 +183,7 @@ def _cuda_devices(obj, found: set) -> set:
     return found
 
 
-def _block(obj):
+def block_until_ready(obj):
     """Wait until the devices holding ``obj``'s tensors are done (the
     counterpart of ``jax.block_until_ready``); CPU results are ready."""
     for dev in _cuda_devices(obj, set()):
@@ -256,10 +256,10 @@ class PhaseTimer:
         time as ``device/<name>`` and the first call's as
         ``device/<name>+compile``, and return the result."""
         t0 = time.perf_counter()
-        out = _block(fn(*args, **kwargs))
+        out = block_until_ready(fn(*args, **kwargs))
         dt_first = time.perf_counter() - t0
         t0 = time.perf_counter()
-        out = _block(fn(*args, **kwargs))
+        out = block_until_ready(fn(*args, **kwargs))
         dt = time.perf_counter() - t0
         key = f"device/{name}"
         self.times[f"{key}+compile"] = (
@@ -275,9 +275,9 @@ class PhaseTimer:
         """One-time measurement of the per-stage launch and synchronisation
         overhead: a tiny operation on ``device``, waited for."""
         x = torch.arange(8.0, device=device)
-        _block(torch.sum(torch.sin(x)))                 # warm-up
+        block_until_ready(torch.sum(torch.sin(x)))      # warm-up
         t0 = time.perf_counter()
-        _block(torch.sum(torch.sin(x + 1.0)))
+        block_until_ready(torch.sum(torch.sin(x + 1.0)))
         dt = time.perf_counter() - t0
         self.times["device/dispatch-floor"] = dt
         if self.enabled:

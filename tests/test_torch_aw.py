@@ -4,8 +4,8 @@ the IDG-AW imaging program, and the CLI's ``--mode aw --idg`` and
 
 * schema names byte-identical to the JAX package's, so each package reads
   the other's files; ``get_akernels`` against the JAX function on one file;
-* ``_detect_time_major_layout`` against the JAX function;
-* ``_aw_idg_pipeline`` (layout None and the detected raster) against the
+* ``detect_time_major_layout`` against the JAX function;
+* ``aw_idg_pipeline`` (layout None and the detected raster) against the
   JAX ``_aw_idg_pipeline``, which grids through its XLA IDG-AW on the CPU:
   image rel-L2 ≤ 1e-4 over the central 75%;
 * the port's CLI against the JAX CLI on one tiny dataset: images within
@@ -27,9 +27,10 @@ from ska_sdp_tpu.io import synthetic as j_synth  # noqa: E402
 from ska_sdp_tpu.models import dataset as j_ds  # noqa: E402
 from ska_sdp_tpu_torch import cli  # noqa: E402
 from ska_sdp_tpu_torch.config import GridParams, ImagingConfig  # noqa: E402
-from ska_sdp_tpu_torch.io import h5, schema  # noqa: E402
+from ska_sdp_tpu_torch.io import h5, inputs, schema  # noqa: E402
 from ska_sdp_tpu_torch.io import synthetic  # noqa: E402
 from ska_sdp_tpu_torch.models import dataset as ds  # noqa: E402
+from ska_sdp_tpu_torch.models import runs  # noqa: E402
 from ska_sdp_tpu_torch.ops.idg_aw import aw_screens_host  # noqa: E402
 
 torch.set_num_threads(2)
@@ -64,7 +65,7 @@ def observation():
     ak[:, 7, 7] = 1.0
     ak += 0.05 * (rng.standard_normal(ak.shape)
                   + 1j * rng.standard_normal(ak.shape))
-    return ds.vis_data_from_observation(obs), ak
+    return inputs.vis_data_from_observation(obs), ak
 
 
 class TestSchemaAndIngest:
@@ -91,12 +92,12 @@ class TestSchemaAndIngest:
             want = j_ds.get_akernels(jfile, THETA, t, f)
             assert want.shape == (5, 15, 15)
             np.testing.assert_array_equal(
-                ds.get_akernels(jfile, THETA, t, f), want)
+                inputs.get_akernels(jfile, THETA, t, f), want)
             # the port's writer writes the reference's file
             np.testing.assert_array_equal(
-                ds.get_akernels(tfile, THETA, t, f), want)
+                inputs.get_akernels(tfile, THETA, t, f), want)
         with pytest.raises(FileNotFoundError):
-            ds.get_akernels(str(tmp_path / "missing.h5"), THETA, t0, f0)
+            inputs.get_akernels(str(tmp_path / "missing.h5"), THETA, t0, f0)
 
 
 class TestLayout:
@@ -113,7 +114,7 @@ class TestLayout:
             a1, a2, t = a1[perm], a2[perm], t[perm]
         elif case == "ragged":
             n -= 7
-        got = ds._detect_time_major_layout(a1, a2, t, n)
+        got = ds.detect_time_major_layout(a1, a2, t, n)
         assert got == j_ds._detect_time_major_layout(a1, a2, t, n)
         expect = {"raster": (12, 45), "one_time": (1, 45)}.get(case)
         assert got == expect
@@ -126,10 +127,10 @@ class TestAWPipeline:
         n = vd.uvw.shape[0]
         a1 = np.asarray(vd.antenna1, np.int32)
         a2 = np.asarray(vd.antenna2, np.int32)
-        layout = (ds._detect_time_major_layout(a1, a2, vd.time, n)
+        layout = (ds.detect_time_major_layout(a1, a2, vd.time, n)
                   if raster else None)
         assert (layout is not None) == raster
-        mr = ds._aw_run_bound(a1.astype(np.int64), a2.astype(np.int64), n)
+        mr = ds.aw_run_bound(a1.astype(np.int64), a2.astype(np.int64), n)
         scr = aw_screens_host(ak.astype(np.complex64), 64).astype(
             np.complex64)
         uvw = np.asarray(vd.uvw, np.float32)
@@ -138,7 +139,7 @@ class TestAWPipeline:
         want, want_max, nd_want = j_ds._aw_idg_pipeline(
             scr, uvw, a1, a2, f, vis, theta=THETA, lam=LAM, max_runs=mr,
             layout=layout)
-        got, got_max, nd = ds._aw_idg_pipeline(
+        got, got_max, nd = ds.aw_idg_pipeline(
             torch.as_tensor(scr), torch.as_tensor(uvw), torch.as_tensor(a1),
             torch.as_tensor(a2), torch.as_tensor(f), torch.as_tensor(vis),
             theta=THETA, lam=LAM, max_runs=mr, layout=layout)
@@ -165,16 +166,16 @@ class TestAWPipeline:
         paths = [os.path.join(data_dir, f)
                  for f in ("wkern.h5", "akern.h5", "vis.h5")]
         cfg = ImagingConfig(grid=GridParams(theta=THETA, lam=LAM))
-        mx_f, img_f = ds.aw_gridding(*paths, config=cfg, device="cpu")
-        mx_i, img_i = ds.aw_gridding(None, *paths[1:], config=cfg, idg=True,
-                                     device="cpu")
+        mx_f, img_f = runs.aw_gridding(*paths, config=cfg, device="cpu")
+        mx_i, img_i = runs.aw_gridding(None, *paths[1:], config=cfg, idg=True,
+                                       device="cpu")
         for mx, img in ((mx_f, img_f), (mx_i, img_i)):
             assert img.shape == (N, N) and np.isfinite(img).all()
             assert mx == pytest.approx(float(img.max()))
         assert not np.array_equal(img_f, img_i)
         # the staged route (its run prep sorts the raster) images the same
-        _, img_s = ds.aw_gridding(None, *paths[1:], config=cfg, idg=True,
-                                  device_phases=True, device="cpu")
+        _, img_s = runs.aw_gridding(None, *paths[1:], config=cfg, idg=True,
+                                    device_phases=True, device="cpu")
         assert _rel(_crop(img_s), _crop(img_i)) < 1e-4
 
 
@@ -182,8 +183,8 @@ class TestCLI:
     def test_make_data_writes_vis_and_akern(self, data_dir):
         assert sorted(os.listdir(data_dir)) == ["akern.h5", "vis.h5",
                                                 "wkern.h5"]
-        ak = ds.get_akernels(os.path.join(data_dir, "akern.h5"), THETA,
-                             55000.0, 1.5e8)
+        ak = inputs.get_akernels(os.path.join(data_dir, "akern.h5"), THETA,
+                                 55000.0, 1.5e8)
         np.testing.assert_array_equal(
             ak, j_ds.get_akernels(os.path.join(data_dir, "akern.h5"), THETA,
                                   55000.0, 1.5e8))

@@ -19,7 +19,7 @@ Bounds:
   kernels at the ``exact`` precision tier.  #14 and #15 fold into the one
   CUDA kernel, so agreeing with all three is the CPU half of the fold's
   evidence;
-* 1e-8 (float64) and 1e-4 (float32): ``_aw_pipeline`` against the JAX
+* 1e-8 (float64) and 1e-4 (float32): ``aw_pipeline`` against the JAX
   ``_aw_pipeline``; 1e-4 over the central 75% for the CLI;
 * 1e-10 (complex128): ``synthesis_fft``, the FFT shape the kernel
   computes, against the dense ``_sandwich(S, X)`` for every m of the
@@ -40,7 +40,7 @@ import pytest
 import torch
 
 from ska_sdp_tpu_torch import cli, kernels
-from ska_sdp_tpu_torch.io import h5, synthetic
+from ska_sdp_tpu_torch.io import h5, inputs, synthetic
 from ska_sdp_tpu_torch.kernels import aw_fused
 from ska_sdp_tpu_torch.models import dataset as ds
 from ska_sdp_tpu_torch.ops import convolution as conv
@@ -433,7 +433,7 @@ def observation():
     bank = np.stack([synthetic.w_kernel_host(THETA, float(w), 4, 256, 15)
                      for w in centers])
     ak = synthetic.akern_stamps(cfg)[:, 0, 0]
-    return SimpleNamespace(obs=obs, vd=ds.vis_data_from_observation(obs),
+    return SimpleNamespace(obs=obs, vd=inputs.vis_data_from_observation(obs),
                            bank=bank, centers=centers, ak=ak)
 
 
@@ -453,8 +453,8 @@ class TestAWPipeline:
                                            chunk=256)
         # the port's pipeline takes no times: only the antennas are read
         t_args = args[:6] + args[7:]
-        got, got_max = ds._aw_pipeline(*map(torch.as_tensor, t_args),
-                                       theta=THETA, lam=LAM, chunk=256)
+        got, got_max = ds.aw_pipeline(*map(torch.as_tensor, t_args),
+                                      theta=THETA, lam=LAM, chunk=256)
         want = np.asarray(want)
         assert got.shape == want.shape == (N, N)
         assert got.dtype == (torch.float64 if precision == "double"

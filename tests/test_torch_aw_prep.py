@@ -3,11 +3,13 @@
 * ``ops.idg_aw.aw_screens`` against its numpy twin ``aw_screens_host`` and
   the JAX package's ``aw_screens``, in complex128 (rtol 1e-12); a delta
   stamp gives unit screens;
-* ``models.dataset._aw_screens`` returns ``prec.complex`` on the requested
-  device, from numpy or tensor stamps;
-* ``models.dataset._aw_run_bound`` counts exactly the distinct pairs
+* ``models.dataset.antenna_screens`` returns ``prec.complex`` on the
+  requested device, from numpy or tensor stamps;
+* ``models.dataset.aw_run_bound`` counts exactly the distinct pairs
   ``np.unique`` counts: ids with gaps, autocorrelations, one pair, no
-  record, int32 and int64, numpy and tensors;
+  record, int32 and int64, numpy and tensors; ``pair_count``, which the
+  IDG-AW cube sizes its bound from, counts what its ``torch.unique``
+  counted;
 * ``aw_idg_image`` and ``aw_predict_vis`` on the CPU against the same
   pipelines fed with ``aw_screens_host`` screens and the ``np.unique``
   bound (rtol 1e-6; the same dropped count);
@@ -19,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from ska_sdp_tpu_torch.io import inputs
 from ska_sdp_tpu_torch.io.synthetic import (SyntheticConfig,
                                             simulate_observation)
 from ska_sdp_tpu_torch.models import dataset as ds
@@ -91,7 +94,7 @@ def test_aw_screens_dtype_device_and_values(prec, as_tensor):
     fov_pad = 0.75
     n_t, n_g, _, _ = fov_pad_geometry(THETA, LAM, fov_pad)
     stamps = torch.as_tensor(ak) if as_tensor else ak
-    got = ds._aw_screens(stamps, 64, THETA, LAM, fov_pad, prec, "cpu")
+    got = ds.antenna_screens(stamps, 64, THETA, LAM, fov_pad, prec, "cpu")
     assert got.dtype == prec.complex and got.device.type == "cpu"
     # the parent's arithmetic: stamps in prec, screens in complex128, cast
     want = aw_screens_host(ak.astype(prec.np_complex), 64,
@@ -126,14 +129,26 @@ def test_run_bound_counts_what_np_unique_counts(case, dtype, as_tensor):
     n = a1.shape[0]
     args = (torch.as_tensor(a1), torch.as_tensor(a2)) if as_tensor \
         else (a1, a2)
-    got = ds._aw_run_bound(*args, n)
+    got = ds.aw_run_bound(*args, n)
     assert type(got) is int
     assert got == _np_bound(a1, a2, n)
 
 
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_pair_count_is_the_cube_s_old_unique_count(case):
+    """``aw_idg_cube`` sizes its run bound from :func:`pair_count`; it
+    counted the int32 device ids' pair keys with ``torch.unique``, and
+    the count, with it ``max_runs``, stays that number."""
+    _, a1, a2 = case
+    a1_d, a2_d = (torch.as_tensor(a.astype(np.int32)) for a in (a1, a2))
+    want = int(torch.unique(a1_d.to(torch.int64) * 2**32
+                            + a2_d.to(torch.int64)).numel())
+    assert ds.pair_count(a1_d, a2_d) == want
+
+
 @pytest.fixture(scope="module")
 def vd():
-    return ds.vis_data_from_observation(simulate_observation(CFG))
+    return inputs.vis_data_from_observation(simulate_observation(CFG))
 
 
 def _parent_inputs(vd, ak, fov_pad, device="cpu"):
@@ -143,7 +158,7 @@ def _parent_inputs(vd, ak, fov_pad, device="cpu"):
     n_t, n_g, _, _ = fov_pad_geometry(THETA, LAM, fov_pad)
     scr = aw_screens_host(ak.astype(np.complex64), 64,
                           fov_scale=n_g / n_t).astype(np.complex64)
-    a1, a2 = ds._ant_ids(vd, n)
+    a1, a2 = ds.ant_ids(vd, n)
     return (torch.as_tensor(scr, device=device),
             torch.as_tensor(a1.astype(np.int32), device=device),
             torch.as_tensor(a2.astype(np.int32), device=device),
@@ -155,9 +170,9 @@ def test_image_matches_the_host_built_route(vd, fov_pad):
     ak = _stamps()
     scr, a1, a2, max_runs, n = _parent_inputs(vd, ak, fov_pad)
     uvw, f, vis = ds.idg_inputs(vd, device="cpu")
-    layout = ds._detect_time_major_layout(vd.antenna1, vd.antenna2,
-                                          vd.time, n)
-    img, mx, nd = ds._aw_idg_pipeline(
+    layout = ds.detect_time_major_layout(vd.antenna1, vd.antenna2,
+                                         vd.time, n)
+    img, mx, nd = ds.aw_idg_pipeline(
         scr, uvw, a1, a2, f, vis, theta=THETA, lam=LAM, max_runs=max_runs,
         fov_pad=fov_pad, layout=layout)
     got = ds.aw_idg_image(vd, ak, theta=THETA, lam=LAM, fov_pad=fov_pad,
@@ -176,7 +191,7 @@ def test_prediction_matches_the_host_built_route(vd, fov_pad):
     model[N // 2 - 20, N // 2 + 11] = 0.5
     scr, a1, a2, max_runs, n = _parent_inputs(vd, ak, fov_pad)
     uvw, f = ds._uvw_freq(vd, n, SINGLE, "cpu")
-    vis, nd = ds._aw_idg_predict_pipeline(
+    vis, nd = ds.aw_idg_predict_pipeline(
         scr, torch.as_tensor(model), uvw, a1, a2, f, theta=THETA, lam=LAM,
         subgrid=64, taper_beta=12.0, max_runs=max_runs, fov_pad=fov_pad)
     got = ds.aw_predict_vis(vd, ak, model, theta=THETA, lam=LAM,
@@ -206,7 +221,7 @@ def test_on_the_card_screens_and_count(cuda):
     np.testing.assert_allclose(got.cpu().numpy(),
                                aw_screens_host(ak, 64, 1.25),
                                rtol=1e-12, atol=1e-14)
-    scr = ds._aw_screens(ak, 64, THETA, LAM, None, SINGLE, cuda)
+    scr = ds.antenna_screens(ak, 64, THETA, LAM, None, SINGLE, cuda)
     assert scr.dtype == torch.complex64 and scr.device.type == "cuda"
     np.testing.assert_allclose(
         scr.cpu().numpy(),
@@ -215,7 +230,7 @@ def test_on_the_card_screens_and_count(cuda):
     a1 = rng.integers(0, 512, 1_046_528)
     a2 = np.minimum(a1 + rng.integers(0, 128, a1.shape[0]), 511)
     n = a1.shape[0]
-    got = ds._aw_run_bound(torch.as_tensor(a1.astype(np.int32), device=cuda),
-                           torch.as_tensor(a2.astype(np.int32), device=cuda),
-                           n)
+    got = ds.aw_run_bound(torch.as_tensor(a1.astype(np.int32), device=cuda),
+                          torch.as_tensor(a2.astype(np.int32), device=cuda),
+                          n)
     assert got == _np_bound(a1, a2, n)

@@ -46,9 +46,10 @@ import torch
 
 from ska_sdp_tpu_torch import cli
 from ska_sdp_tpu_torch.config import GridParams, ImagingConfig
-from ska_sdp_tpu_torch.io import h5, schema
+from ska_sdp_tpu_torch.io import h5, inputs, schema
 from ska_sdp_tpu_torch.io.stream import SlabPrefetcher
 from ska_sdp_tpu_torch.models import dataset as ds
+from ska_sdp_tpu_torch.models import runs
 from ska_sdp_tpu_torch.types import SPEED_OF_LIGHT
 from ska_sdp_tpu_torch.utils import checkpoint as ckpt
 from ska_sdp_tpu_torch.utils.metrics import MetricsSink
@@ -83,8 +84,8 @@ def files(obs_dir):
 
 @pytest.fixture(scope="module")
 def one_shot(files):
-    return ds.w_gridding(files.wk, files.vis, config=_config(),
-                         device="cpu")
+    return runs.w_gridding(files.wk, files.vis, config=_config(),
+                           device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -114,14 +115,14 @@ class TestCheckpointResume:
         ck = str(tmp_path / "run.ckpt.h5")
         mx0, img0 = one_shot
         timer = PhaseTimer()
-        assert ds.w_gridding_checkpointed(
+        assert runs.w_gridding_checkpointed(
             files.wk, files.vis, ck, slab=SLAB, config=_config(),
             _max_slabs=1, device="cpu", timer=timer) == (None, None)
         assert os.path.exists(ck) and _next(ck) == SLAB
         assert list(timer.times) == ["ingest/vis", "ingest/wkern",
                                      "grid/slab", "checkpoint/write"]
         out = str(tmp_path / "img.h5")
-        mx, img = ds.w_gridding_checkpointed(
+        mx, img = runs.w_gridding_checkpointed(
             files.wk, files.vis, ck, outfile=out, slab=SLAB,
             config=_config(), device="cpu", timer=timer)
         assert not os.path.exists(ck)
@@ -132,8 +133,8 @@ class TestCheckpointResume:
         assert list(timer.times)[-2:] == ["finish/fft", "write/img"]
 
     def test_in_memory_callback_and_resume(self, files, one_shot):
-        vd = ds.load_vis_data(files.vis)
-        bank, centers = ds.get_wkernels(files.wk, THETA)
+        vd = inputs.load_vis_data(files.vis)
+        bank, centers = inputs.get_wkernels(files.wk, THETA)
         copies = []
         kw = dict(theta=THETA, lam=LAM, slab=SLAB, precision="double",
                   device="cpu")
@@ -154,9 +155,9 @@ class TestCrossPackageResume:
         j.ds.w_gridding_checkpointed(files.wk, files.vis, paths[0],
                                      slab=SLAB, config=j.cfg(precision),
                                      _max_slabs=1)
-        ds.w_gridding_checkpointed(files.wk, files.vis, paths[1], slab=SLAB,
-                                   config=_config(precision), _max_slabs=1,
-                                   device="cpu")
+        runs.w_gridding_checkpointed(files.wk, files.vis, paths[1], slab=SLAB,
+                                     config=_config(precision), _max_slabs=1,
+                                     device="cpu")
         fprs = [int(h5.read_dataset(p, ckpt.FPR)[0]) for p in paths]
         assert fprs[0] == fprs[1] != 0
         real = np.float32 if precision == "single" else np.float64
@@ -171,7 +172,7 @@ class TestCrossPackageResume:
 
         def run(mod, **kw):
             if mod is ds:
-                return ds.w_gridding_checkpointed(
+                return runs.w_gridding_checkpointed(
                     files.wk, files.vis, ck, slab=SLAB, config=_config(),
                     device="cpu", **kw)
             return j.ds.w_gridding_checkpointed(
@@ -254,7 +255,7 @@ class TestOutOfCore:
             config=j.cfg(precision), timer=jt)
         ck = str(tmp_path / "p.h5")
         timer = PhaseTimer()
-        mx, img = ds.w_gridding_out_of_core(
+        mx, img = runs.w_gridding_out_of_core(
             wide_files.wk, wide_files.vis, ck, slab=50,
             config=_config(precision), device="cpu", timer=timer)
         assert not os.path.exists(ck)
@@ -269,12 +270,12 @@ class TestOutOfCore:
     def test_resume(self, files, tmp_path):
         ck = str(tmp_path / "ooc.h5")
         kw = dict(slab=SLAB, config=_config(), device="cpu")
-        want = ds.w_gridding_out_of_core(files.wk, files.vis,
-                                         str(tmp_path / "w.h5"), **kw)
-        assert ds.w_gridding_out_of_core(files.wk, files.vis, ck,
-                                         _max_slabs=1, **kw) == (None, None)
+        want = runs.w_gridding_out_of_core(files.wk, files.vis,
+                                           str(tmp_path / "w.h5"), **kw)
+        assert runs.w_gridding_out_of_core(files.wk, files.vis, ck,
+                                           _max_slabs=1, **kw) == (None, None)
         assert _next(ck) == SLAB
-        mx, img = ds.w_gridding_out_of_core(files.wk, files.vis, ck, **kw)
+        mx, img = runs.w_gridding_out_of_core(files.wk, files.vis, ck, **kw)
         np.testing.assert_allclose(img, want[1], rtol=1e-10, atol=1e-12)
 
     def test_multichannel_reads_channel_zero(self, tmp_path):
@@ -283,10 +284,10 @@ class TestOutOfCore:
                          "--nw", "4", "--qpx", "2", "--nchan", "3",
                          *GEO]) == 0
         vis = os.path.join(d, "vis.h5")
-        total, per_row, nch = ds.vis_record_geometry(vis)
-        vd = ds.load_vis_data(vis)
+        total, per_row, nch = inputs.vis_record_geometry(vis)
+        vd = inputs.load_vis_data(vis)
         assert (total, nch) == (vd.vis.shape[0], 3)
-        read = ds._flat_vis_reader(vis, per_row, nch)
+        read = inputs.flat_vis_reader(vis, per_row, nch)
         np.testing.assert_array_equal(read(7, 20), vd.vis[7:27])
 
 
@@ -313,20 +314,20 @@ class TestCheckpointGuards:
 
     def test_single_run_writes_float32(self, files, tmp_path):
         ck = str(tmp_path / "s.h5")
-        ds.w_gridding_checkpointed(files.wk, files.vis, ck, slab=SLAB,
-                                   config=_config("single"), _max_slabs=1,
-                                   device="cpu")
+        runs.w_gridding_checkpointed(files.wk, files.vis, ck, slab=SLAB,
+                                     config=_config("single"), _max_slabs=1,
+                                     device="cpu")
         for name in (ckpt.GRID_RE, ckpt.GRID_IM):
             assert h5.read_dataset(ck, name).dtype == np.float32
 
     def test_mismatched_run_restarts(self, files, one_shot, tmp_path,
                                      caplog):
         ck = str(tmp_path / "m.h5")
-        ds.w_gridding_checkpointed(files.wk, files.vis, ck, slab=SLAB,
-                                   config=_config("single"), _max_slabs=1,
-                                   device="cpu")
+        runs.w_gridding_checkpointed(files.wk, files.vis, ck, slab=SLAB,
+                                     config=_config("single"), _max_slabs=1,
+                                     device="cpu")
         with caplog.at_level(logging.WARNING, LOG):
-            mx, img = ds.w_gridding_checkpointed(
+            mx, img = runs.w_gridding_checkpointed(
                 files.wk, files.vis, ck, slab=SLAB, config=_config(),
                 device="cpu")
         assert any("fingerprint" in r.message for r in caplog.records)
@@ -484,7 +485,7 @@ def memory_obs():
     centers = synthetic.w_plane_centers(obs, cfg)
     bank = np.stack([synthetic.w_kernel_host(THETA, float(w), 2, 128, 15)
                      for w in centers])
-    return ds.vis_data_from_observation(obs), bank, centers
+    return inputs.vis_data_from_observation(obs), bank, centers
 
 
 class TestCuda:

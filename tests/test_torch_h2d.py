@@ -1,5 +1,5 @@
 """Host-to-device copies from page-locked caller memory
-(``utils/hostmem.py``, ``models.dataset.to_device``).
+(``utils/hostmem.py``: ``pinned_copy`` and ``to_device``).
 
 * the registry, through fake register and unregister hooks: a buffer is
   registered on its second sight and never on its first; a view hits its
@@ -34,6 +34,7 @@ import pytest
 import torch
 
 from ska_sdp_tpu_torch.models import dataset as ds
+from ska_sdp_tpu_torch.types import SINGLE
 from ska_sdp_tpu_torch.utils import hostmem, timing
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -161,7 +162,7 @@ def test_a_failed_registration_falls_back_for_good(monkeypatch):
     assert _count("register_failed") == before["register_failed"] + 1
     assert _count("register") == before["register"]
     # the caller's pageable path: the host cast's tensor
-    t = ds.to_device(uvw, "cpu", np_dtype=np.float32)
+    t = hostmem.to_device(uvw, "cpu", np_dtype=np.float32)
     assert np.array_equal(t.numpy().view(np.int32),
                           np.ascontiguousarray(uvw, np.float32).view(np.int32))
 
@@ -181,7 +182,7 @@ def test_the_cpu_never_registers_and_keeps_the_host_cast(monkeypatch,
     before = dict(timing.COUNTERS.group("h2d/"))
     for view in (x, x[: len(x) // 2], x[::2]):
         for _ in range(3):
-            t = ds.to_device(view, "cpu", np_dtype=np_dtype, dtype=dtype)
+            t = hostmem.to_device(view, "cpu", np_dtype=np_dtype, dtype=dtype)
             ref = torch.as_tensor(
                 view if np_dtype is None
                 else np.ascontiguousarray(view, np_dtype), dtype=dtype)
@@ -264,8 +265,8 @@ def test_the_registered_branch_counts_up_to_the_root(monkeypatch):
             activities=[torch.profiler.ProfilerActivity.CPU]):
         with ds._entry("fake", vd, None):
             with timing.span("sdp.host_prep"):
-                u = ds.to_device(uvw, card, np_dtype=np.float32)
-                a = ds.to_device(ids, card, np_dtype=np.int32)
+                u = hostmem.to_device(uvw, card, np_dtype=np.float32)
+                a = hostmem.to_device(ids, card, np_dtype=np.int32)
     log = timing.spans()
     root = next(s for s in log if s.parent is None)
     prep = next(s for s in log if s.name == "sdp.host_prep")
@@ -325,14 +326,13 @@ def _one_dump(config: str, device):
 
 def _inputs_on_card(name, vd, extra, device):
     """The device tensors the entry makes of its host arrays."""
-    prec = ds._precision("single")
+    prec = SINGLE
     out = list(ds.idg_inputs(vd, device=device))
     if name.startswith("aw_"):
-        out.append(ds._stamps(extra[-1], prec, device))
-        out += [ds.to_device(a, device, np_dtype=np.int32)
-                for a in ds._ant_ids(vd, len(vd.uvw))]
+        out.append(ds.stamp_tensors(extra[-1], prec, device))
+        out += ds.id_tensors(ds.ant_ids(vd, len(vd.uvw)), device)
     if name == "aw_image" or name == "w_image":
-        out += list(ds._bank(extra[0], extra[1], prec, device))
+        out += list(ds.bank_tensors(extra[0], extra[1], prec, device))
     return out
 
 

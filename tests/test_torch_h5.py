@@ -239,7 +239,7 @@ def dataset(tmp_path_factory):
 class TestFileEntries:
     def test_w_gridding_on_both_backends(self, nb, dataset, monkeypatch):
         from ska_sdp_tpu_torch.config import GridParams, ImagingConfig
-        from ska_sdp_tpu_torch.models import dataset as ds
+        from ska_sdp_tpu_torch.models import runs
 
         icfg = ImagingConfig(grid=GridParams(theta=0.05, lam=1800),
                              precision_name="double")
@@ -247,7 +247,7 @@ class TestFileEntries:
         for backend in ("h5py", "native"):
             _select(monkeypatch, backend)
             for src, paths in dataset.items():
-                out[backend, src] = ds.w_gridding(
+                out[backend, src] = runs.w_gridding(
                     paths["wkern"], paths["vis"], config=icfg, device="cpu")
         ref_max, ref = out["h5py", "h5py"]
         for mx, img in out.values():

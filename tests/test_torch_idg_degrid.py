@@ -26,7 +26,8 @@ import torch
 from ska_sdp_tpu_torch import kernels
 from ska_sdp_tpu_torch.kernels import idg_aw_stream
 from ska_sdp_tpu_torch.kernels.idg_aw_records import (
-    from_jax_degrid_records, idg_aw_degrid_records, idg_aw_run_records)
+    idg_aw_degrid_records, idg_aw_run_records)
+from torch_jax_records import from_jax_degrid_records
 
 from test_torch_idg_grid import (SPLIT_SUBGRIDS, SPLIT_TOL, _complex3,
                                  _crop_padded, _exponent, _factor64, _pad,

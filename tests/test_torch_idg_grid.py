@@ -24,10 +24,10 @@ import torch
 
 from ska_sdp_tpu_torch import kernels
 from ska_sdp_tpu_torch.kernels import idg_aw_stream
-from ska_sdp_tpu_torch.kernels.idg_aw_records import (
-    from_jax_run_records, idg_aw_run_records)
+from ska_sdp_tpu_torch.kernels.idg_aw_records import idg_aw_run_records
 from ska_sdp_tpu_torch.ops.idg import _dft_matrix, kaiser_taper
 from ska_sdp_tpu_torch.ops.idg_aw import PAIR_SHIFT, SENTINEL, aw_screens_host
+from torch_jax_records import from_jax_run_records
 
 torch.set_num_threads(2)
 
@@ -250,14 +250,14 @@ class TestGridderPieces:
         # any even S from 2 to 128 reaches a kernel instance of side
         # 16·⌈S/16⌉; the wrappers zero-pad the screens (and planes) to it
         for S in range(2, 129, 2):
-            idg_aw_stream._check_subgrid(S)
+            idg_aw_stream.check_subgrid(S)
             SP = idg_aw_stream.padded_side(S)
             assert SP % 16 == 0 and S <= SP < S + 16
         assert [idg_aw_stream.padded_side(S) for S in (32, 64, 128)] == [
             32, 64, 128]
         for S in (0, 31, 33, 130):
             with pytest.raises(ValueError, match="subgrid"):
-                idg_aw_stream._check_subgrid(S)
+                idg_aw_stream.check_subgrid(S)
         scr = torch.randn((3, 20, 20), dtype=torch.complex64)
         p = idg_aw_stream._padded_screens(scr, 20)
         assert p.shape == (3, 32, 32) and torch.equal(p[:, :20, :20], scr)
@@ -516,10 +516,10 @@ class TestDispatch:
 
     def test_drop_counters_warn_once(self, capsys):
         kernels.reset_drop_counters()
-        kernels._note_drops("idg_gridder", 0, "r")
+        kernels.note_drops("idg_gridder", 0, "r")
         assert kernels.drop_counters() == {}
-        kernels._note_drops("idg_gridder", 3, "r")
-        kernels._note_drops("idg_gridder", 2, "r")
+        kernels.note_drops("idg_gridder", 3, "r")
+        kernels.note_drops("idg_gridder", 2, "r")
         assert kernels.drop_counters() == {"idg_gridder": 5}
         assert capsys.readouterr().err.count("warning: idg_gridder") == 1
         kernels.reset_drop_counters()

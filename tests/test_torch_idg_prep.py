@@ -20,8 +20,9 @@ from ska_sdp_tpu.kernels.idg_aw_pallas import (  # noqa: E402
     idg_aw_run_records as j_run_records)
 from ska_sdp_tpu.ops.idg_aw import _record_keys as j_record_keys  # noqa: E402
 from ska_sdp_tpu_torch.kernels.idg_aw_records import (  # noqa: E402
-    from_jax_run_records, idg_aw_run_records)
+    idg_aw_run_records)
 from ska_sdp_tpu_torch.ops.idg_aw import _record_keys  # noqa: E402
+from torch_jax_records import from_jax_run_records  # noqa: E402
 
 from test_torch_idg_grid import random_problem, track_problem  # noqa: E402
 

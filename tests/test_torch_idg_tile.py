@@ -28,6 +28,7 @@ import torch
 from ska_sdp_tpu_torch.kernels import idg_aw_stream as stream
 from ska_sdp_tpu_torch.kernels import idg_tile
 from ska_sdp_tpu_torch.utils.timing import PhaseTimer
+from torch_jax_records import from_jax_tile_records
 
 torch.set_num_threads(2)
 
@@ -128,7 +129,7 @@ class TestPrep:
         starts_j = np.asarray(starts_j)
         np.testing.assert_array_equal(starts.numpy(), starts_j)
         assert 0 < starts_j[-1] < p.shape[0]     # some records excluded
-        rows_j, _ = idg_tile.from_jax_tile_records(recs_j, starts_j)
+        rows_j, _ = from_jax_tile_records(recs_j, starts_j)
         np.testing.assert_allclose(
             _canonical(recs.numpy(), starts_j),
             _canonical(rows_j.numpy(), starts_j), rtol=1e-6, atol=1e-6)
@@ -143,7 +144,7 @@ class TestPrep:
         out_j = jref.prep_with_order(*_jax_geometry(shape, S),
                                      jnp.asarray(p), jnp.asarray(w),
                                      support)
-        recs_j, starts_j, order_j, valid_j = idg_tile.from_jax_tile_records(
+        recs_j, starts_j, order_j, valid_j = from_jax_tile_records(
             *[np.asarray(x) for x in out_j])
         recs, starts, order, valid = idg_tile.prep_with_order(
             shape, *_t(p, w), subgrid=S, support=support)
@@ -328,8 +329,8 @@ class TestGridder:
                                             theta=THETA, subgrid=S,
                                             interpret=True)
         want = np.asarray(g_re) + 1j * np.asarray(g_im)
-        rows, starts = idg_tile.from_jax_tile_records(np.asarray(recs_j),
-                                                      np.asarray(starts_j))
+        rows, starts = from_jax_tile_records(np.asarray(recs_j),
+                                             np.asarray(starts_j))
         assert rows.shape[0] == 5 and rows.shape[1] % 256 == 0
         np.testing.assert_array_equal(
             rows.numpy(), np.asarray(recs_j).transpose(1, 0, 2)
@@ -385,7 +386,7 @@ class TestDegridder:
         jnp = jref.jnp
         out_j = jref.prep_with_order(*_jax_geometry(shape, S),
                                      jnp.asarray(p), jnp.asarray(w), 15)
-        recs, starts, order, valid = idg_tile.from_jax_tile_records(
+        recs, starts, order, valid = from_jax_tile_records(
             *[np.asarray(x) for x in out_j])
         assert tuple(recs.shape) == (3, p.shape[0])
         got = idg_tile.idg_degrid_from_records(
@@ -414,15 +415,17 @@ class TestStaged:
     def test_matches_unstaged_and_jax(self, jref, observation, S, fov_pad):
         from ska_sdp_tpu.models.dataset import _idg_staged as j_staged
         from ska_sdp_tpu.utils.timing import PhaseTimer as JPhaseTimer
+        from ska_sdp_tpu_torch.io.inputs import vis_data_from_observation
         from ska_sdp_tpu_torch.models import dataset as ds
+        from ska_sdp_tpu_torch.models import runs
 
-        vd = ds.vis_data_from_observation(observation)
+        vd = vis_data_from_observation(observation)
         uvw, f, vis = ds.idg_inputs(vd, device="cpu")
         timer = PhaseTimer()
         idg_tile.reset_launch_count()
-        img, mx = ds._idg_staged(uvw, f, vis, theta=THETA, lam=LAM,
-                                 subgrid=S, taper_beta=12.0, timer=timer,
-                                 fov_pad=fov_pad)
+        img, mx = runs.idg_staged(uvw, f, vis, theta=THETA, lam=LAM,
+                                  subgrid=S, taper_beta=12.0, timer=timer,
+                                  fov_pad=fov_pad)
         img = img.numpy()
         assert img.shape == (N, N) and np.isfinite(img).all()
         assert mx == float(img.max())
@@ -444,16 +447,16 @@ class TestStaged:
     def test_file_entry_device_phases(self, observation, tmp_path):
         from ska_sdp_tpu_torch.config import GridParams, ImagingConfig
         from ska_sdp_tpu_torch.io.synthetic import write_vis_file
-        from ska_sdp_tpu_torch.models import dataset as ds
+        from ska_sdp_tpu_torch.models import runs
 
         path = str(tmp_path / "vis.h5")
         write_vis_file(path, observation)
         cfg = ImagingConfig(grid=GridParams(theta=THETA, lam=LAM))
         timer = PhaseTimer()
-        mx, img = ds.idg_gridding(path, config=cfg, timer=timer,
-                                  device_phases=True, device="cpu",
-                                  outfile=str(tmp_path / "img.h5"))
-        mx0, img0 = ds.idg_gridding(path, config=cfg, device="cpu")
+        mx, img = runs.idg_gridding(path, config=cfg, timer=timer,
+                                    device_phases=True, device="cpu",
+                                    outfile=str(tmp_path / "img.h5"))
+        mx0, img0 = runs.idg_gridding(path, config=cfg, device="cpu")
         assert _rel(_crop(img), _crop(img0)) < IMG_TOL
         assert mx == float(img.max())
         for key in ("ingest/vis", "write/img", "device/dispatch-floor",

@@ -24,7 +24,7 @@ import torch
 
 from ska_sdp_tpu_torch import cli
 from ska_sdp_tpu_torch.config import KernelOptions
-from ska_sdp_tpu_torch.io import h5, schema
+from ska_sdp_tpu_torch.io import h5, inputs, schema
 from ska_sdp_tpu_torch.io.synthetic import (SyntheticConfig, generate_dataset,
                                             simulate_observation)
 from ska_sdp_tpu_torch.models import dataset as ds
@@ -177,13 +177,13 @@ OBS = SyntheticConfig(theta=THETA, lam=LAM, nant=10, ntime=6, nw_planes=8,
 
 @pytest.fixture(scope="module")
 def obs_vd():
-    return ds.vis_data_from_observation(simulate_observation(OBS))
+    return inputs.vis_data_from_observation(simulate_observation(OBS))
 
 
 @pytest.fixture(scope="module")
 def obs_data(tmp_path_factory):
     paths, obs = generate_dataset(str(tmp_path_factory.mktemp("drv")), OBS)
-    return paths, ds.vis_data_from_observation(obs)
+    return paths, inputs.vis_data_from_observation(obs)
 
 
 def _jax_imgfn(j, mode, uvw0, wstep=2000.0):

@@ -102,7 +102,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ska_sdp_tpu_torch.models.dataset import load_vis_data
+from ska_sdp_tpu_torch.io.inputs import load_vis_data
 from ska_sdp_tpu_torch.models.spectral import idg_cube_sharded
 from ska_sdp_tpu_torch.ops.idg_aw import aw_screens_host
 from ska_sdp_tpu_torch.parallel import (

@@ -1,6 +1,6 @@
 """Port parity for the ``--mode idg`` imaging slice as a whole.
 
-* the port's ``_idg_pipeline`` against the JAX ``_idg_pipeline`` on the
+* the port's ``idg_pipeline`` against the JAX ``_idg_pipeline`` on the
   same synthetic observation (the JAX side grids through its XLA IDG on
   the CPU, another route to the same operator): image rel-L2 ≤ 1e-4 over
   the central 75%;
@@ -25,8 +25,8 @@ from ska_sdp_tpu.models.dataset import _idg_pipeline as j_pipeline  # noqa: E402
 from ska_sdp_tpu_torch import kernels  # noqa: E402
 from ska_sdp_tpu_torch.io.synthetic import (  # noqa: E402
     SyntheticConfig, simulate_observation)
-from ska_sdp_tpu_torch.models.dataset import (  # noqa: E402
-    idg_image, vis_data_from_observation)
+from ska_sdp_tpu_torch.io.inputs import vis_data_from_observation  # noqa: E402,E501
+from ska_sdp_tpu_torch.models.dataset import idg_image  # noqa: E402
 from ska_sdp_tpu_torch.ops import ifft_centered  # noqa: E402
 from ska_sdp_tpu_torch.ops.idg import kaiser_taper, taper_fine  # noqa: E402
 

@@ -1,13 +1,13 @@
 """Port parity for model-visibility prediction (IDG and IDG-AW degridding).
 
 * ``fov_pad_start`` against the JAX function;
-* the port's ``_idg_predict_pipeline`` against the JAX pieces composed on
+* the port's ``idg_predict_pipeline`` against the JAX pieces composed on
   the CPU around ``ops.idg_aw.idg_degrid_aw`` with unit screens and zero
   pair ids (the same (pair, tile) operator): rel-L2 ≤ 5e-5, the reference's
   stream-vs-oracle bound; against the JAX ``_idg_predict_pipeline`` itself,
   which on the CPU runs the fixed-tile XLA degridder (another tiling), at
   method level (0.03);
-* the port's ``_aw_idg_predict_pipeline`` against the JAX one, which runs
+* the port's ``aw_idg_predict_pipeline`` against the JAX one, which runs
   ``idg_degrid_aw`` on the CPU: rel-L2 ≤ 5e-5;
 * a point source against its direct-DFT truth: max |err| ≤ 2e-4, the bound
   of the reference's point-source test;
@@ -29,10 +29,11 @@ from ska_sdp_tpu.ops import idg as j_idg  # noqa: E402
 from ska_sdp_tpu.ops.idg_aw import idg_degrid_aw  # noqa: E402
 from ska_sdp_tpu_torch import SPEED_OF_LIGHT, kernels  # noqa: E402
 from ska_sdp_tpu_torch.config import GridParams, ImagingConfig  # noqa: E402
-from ska_sdp_tpu_torch.io import h5, schema  # noqa: E402
+from ska_sdp_tpu_torch.io import h5, inputs, schema  # noqa: E402
 from ska_sdp_tpu_torch.io.synthetic import (  # noqa: E402
     SyntheticConfig, simulate_observation, write_vis_file)
 from ska_sdp_tpu_torch.models import dataset as ds  # noqa: E402
+from ska_sdp_tpu_torch.models import runs  # noqa: E402
 from ska_sdp_tpu_torch.ops import fft_centered  # noqa: E402
 from ska_sdp_tpu_torch.ops.idg import (fov_pad_start, kaiser_taper,  # noqa: E402,E501
                                        taper_fine)
@@ -52,7 +53,7 @@ def _rel(a, b):
 def observation():
     obs = simulate_observation(SyntheticConfig(theta=THETA, lam=LAM,
                                                nant=10, ntime=12))
-    vd = ds.vis_data_from_observation(obs)
+    vd = inputs.vis_data_from_observation(obs)
     img = np.zeros((N, N), np.float32)
     for l, m, flux in obs["sources"]:
         img[int(round(N / 2 + m * LAM)), int(round(N / 2 + l * LAM))] = flux
@@ -112,7 +113,7 @@ class TestIDGPredict:
         vd, img = observation
         uvw, f = _inputs(vd)
         want, nd_want = _jax_idg_predict_pieces(img, uvw, f, fov_pad)
-        got, nd = ds._idg_predict_pipeline(
+        got, nd = ds.idg_predict_pipeline(
             torch.as_tensor(img), torch.as_tensor(uvw), torch.as_tensor(f),
             theta=THETA, lam=LAM, subgrid=S, taper_beta=BETA,
             fov_pad=fov_pad)
@@ -167,7 +168,7 @@ class TestIDGPredict:
         # the reference's default S=32 (support 15) runs on the fixed-tile
         # degridder; the JAX entry on the CPU runs its fixed-tile XLA
         # degridder, the same tiling
-        got, peak = ds.idg_predict(vis, model, config=cfg, device="cpu")
+        got, peak = runs.idg_predict(vis, model, config=cfg, device="cpu")
         from ska_sdp_tpu.config import GridParams as JGridParams
         from ska_sdp_tpu.config import ImagingConfig as JImagingConfig
 
@@ -177,7 +178,7 @@ class TestIDGPredict:
         assert _rel(got, want) < TOL
         assert abs(peak - j_peak) < TOL * j_peak
         with pytest.raises(ValueError, match="does not match grid"):
-            ds.idg_predict(vis, model, device="cpu", subgrid=64)
+            runs.idg_predict(vis, model, device="cpu", subgrid=64)
 
 
 class TestAWPredict:
@@ -188,7 +189,7 @@ class TestAWPredict:
         a1 = np.asarray(vd.antenna1, np.int64)
         a2 = np.asarray(vd.antenna2, np.int64)
         n = uvw.shape[0]
-        mr = ds._aw_run_bound(a1, a2, n)
+        mr = ds.aw_run_bound(a1, a2, n)
         n_t, n_g, _, _ = j_idg.fov_pad_geometry(THETA, LAM, fov_pad)
         scr = aw_screens_host(akerns.astype(np.complex64), S,
                               fov_scale=n_g / n_t).astype(np.complex64)

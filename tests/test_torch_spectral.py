@@ -39,6 +39,7 @@ from ska_sdp_tpu_torch.kernels import idg_tile
 from ska_sdp_tpu_torch.models import spectral
 from ska_sdp_tpu_torch.ops.idg_aw import aw_screens_host
 from ska_sdp_tpu_torch.utils.timing import PhaseTimer
+from torch_jax_records import from_jax_run_records
 
 torch.set_num_threads(2)
 
@@ -276,7 +277,7 @@ class TestRunMajorFold:
             jnp.asarray(tp.scr.imag, jnp.float32), theta=THETA, subgrid=S,
             interpret=True)
         want = np.asarray(gr) + 1j * np.asarray(gi)
-        ported = awr.from_jax_run_records(*[np.asarray(x) for x in (
+        ported = from_jax_run_records(*[np.asarray(x) for x in (
             recs, st, en, y0, x0, i1, i2, nd)])
         scr = torch.as_tensor(tp.scr.astype(np.complex64))
         got = stream.grid_from_records_plain(
@@ -450,7 +451,7 @@ class TestCubeEntries:
 
     def test_idg_s32_takes_fixed_tile_branch(self, j, tmp_path):
         paths, obs = generate_dataset(str(tmp_path / "d32"), CFG32)
-        from ska_sdp_tpu_torch.models.dataset import vis_data_from_observation
+        from ska_sdp_tpu_torch.io.inputs import vis_data_from_observation
 
         res = spectral.idg_cube(vis_data_from_observation(obs), theta=0.05,
                                 lam=CFG32.lam, subgrid=32, device="cpu")

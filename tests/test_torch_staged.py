@@ -31,8 +31,10 @@ import torch
 
 from ska_sdp_tpu_torch import cli
 from ska_sdp_tpu_torch.config import GridParams, ImagingConfig
+from ska_sdp_tpu_torch.io import inputs
 from ska_sdp_tpu_torch.io.synthetic import SyntheticConfig, generate_dataset
 from ska_sdp_tpu_torch.models import dataset as ds
+from ska_sdp_tpu_torch.models import runs
 from ska_sdp_tpu_torch.utils.timing import PhaseTimer
 
 torch.set_num_threads(2)
@@ -76,13 +78,13 @@ def _run(paths, kind, device_phases, device="cpu", precision="double"):
     kw = dict(config=_config(precision), timer=timer,
               device_phases=device_phases, device=device)
     if kind == "w":
-        mx, img = ds.w_gridding(paths["wkern"], paths["vis"], **kw)
+        mx, img = runs.w_gridding(paths["wkern"], paths["vis"], **kw)
     elif kind == "aw":
-        mx, img = ds.aw_gridding(paths["wkern"], paths["akern"],
-                                 paths["vis"], **kw)
+        mx, img = runs.aw_gridding(paths["wkern"], paths["akern"],
+                                   paths["vis"], **kw)
     else:
-        mx, img = ds.aw_gridding(None, paths["akern"], paths["vis"],
-                                 idg=True, fov_pad=0.75, **kw)
+        mx, img = runs.aw_gridding(None, paths["akern"], paths["vis"],
+                                   idg=True, fov_pad=0.75, **kw)
     return mx, img, timer
 
 
@@ -105,17 +107,17 @@ def _aw_idg_sorted(paths):
     prep's sort (no raster shortcut), as the staged route grids them."""
     from ska_sdp_tpu_torch.types import DOUBLE
 
-    vd = ds.load_vis_data(paths["vis"])
-    ak = ds.get_akernels(paths["akern"], THETA, float(vd.time[0]),
-                         vd.frequency)
+    vd = inputs.load_vis_data(paths["vis"])
+    ak = inputs.get_akernels(paths["akern"], THETA, float(vd.time[0]),
+                             vd.frequency)
     n = vd.vis.shape[0]
-    a1, a2 = ds._ant_ids(vd, n)
+    a1, a2 = ds.ant_ids(vd, n)
     uvw, f, vis = ds.idg_inputs(vd, precision="double", device="cpu")
-    img, _, _ = ds._aw_idg_pipeline(
-        ds._aw_screens(ak, 64, THETA, LAM, 0.75, DOUBLE, "cpu"), uvw,
+    img, _, _ = ds.aw_idg_pipeline(
+        ds.antenna_screens(ak, 64, THETA, LAM, 0.75, DOUBLE, "cpu"), uvw,
         torch.as_tensor(a1.astype(np.int32)),
         torch.as_tensor(a2.astype(np.int32)), f, vis, theta=THETA, lam=LAM,
-        max_runs=ds._aw_run_bound(a1, a2, n), fov_pad=0.75)
+        max_runs=ds.aw_run_bound(a1, a2, n), fov_pad=0.75)
     return img.numpy()
 
 
@@ -231,7 +233,7 @@ def memory_case():
     centers = synthetic.w_plane_centers(obs, cfg)
     bank = np.stack([synthetic.w_kernel_host(THETA, float(w), 4, 128, 15)
                      for w in centers])
-    return SimpleNamespace(vd=ds.vis_data_from_observation(obs), bank=bank,
+    return SimpleNamespace(vd=inputs.vis_data_from_observation(obs), bank=bank,
                            centers=centers,
                            ak=synthetic.akern_stamps(cfg)[:, 0, 0])
 
@@ -243,16 +245,16 @@ def _staged_on(m, kind, dev, timer):
 
     kw = dict(theta=THETA, lam=LAM, device=dev)
     uvw, f, vis = ds.idg_inputs(m.vd, device=dev)
-    bank, wb = ds._bank(m.bank, m.centers, SINGLE, dev)
+    bank, wb = ds.bank_tensors(m.bank, m.centers, SINGLE, dev)
     a1, a2 = (torch.as_tensor(a.astype(np.int32), device=dev)
               for a in (m.vd.antenna1, m.vd.antenna2))
     if kind == "w":
-        got = ds._wproj_staged(torch.conj(bank).resolve_conj(), wb, uvw, f,
-                               vis, theta=THETA, lam=LAM, chunk=8192,
-                               timer=timer)
+        got = runs.wproj_staged(torch.conj(bank).resolve_conj(), wb, uvw, f,
+                                vis, theta=THETA, lam=LAM, chunk=8192,
+                                timer=timer)
         want = ds.w_image(m.vd, m.bank, m.centers, **kw)
     elif kind == "aw":
-        got = ds._aw_fused_staged(
+        got = runs.aw_fused_staged(
             bank, wb, torch.as_tensor(m.ak, dtype=torch.complex64,
                                       device=dev),
             uvw, a1, a2, f, vis, theta=THETA, lam=LAM, chunk=8192,
@@ -260,11 +262,11 @@ def _staged_on(m, kind, dev, timer):
         want = ds.aw_image(m.vd, m.bank, m.centers, m.ak, **kw)
     else:
         n = vis.shape[0]
-        got = ds._aw_idg_staged(
-            ds._aw_screens(m.ak, 64, THETA, LAM, 0.75, SINGLE, dev), uvw,
+        got = runs.aw_idg_staged(
+            ds.antenna_screens(m.ak, 64, THETA, LAM, 0.75, SINGLE, dev), uvw,
             a1, a2, f, vis, theta=THETA, lam=LAM, subgrid=64,
             taper_beta=12.0, timer=timer, fov_pad=0.75,
-            max_runs=ds._aw_run_bound(m.vd.antenna1, m.vd.antenna2, n))
+            max_runs=ds.aw_run_bound(m.vd.antenna1, m.vd.antenna2, n))
         want = ds.aw_idg_image(m.vd, m.ak, fov_pad=0.75, **kw)
     return got[0].cpu().numpy(), want.image.cpu().numpy()
 

@@ -33,6 +33,7 @@ import torch
 
 from ska_sdp_tpu_torch import kernels
 from ska_sdp_tpu_torch.config import KernelOptions
+from ska_sdp_tpu_torch.io.inputs import vis_data_from_observation
 from ska_sdp_tpu_torch.io.synthetic import (SyntheticConfig, akern_stamps,
                                             simulate_observation,
                                             w_plane_centers)
@@ -88,7 +89,7 @@ ENTRIES = sorted(CHILDREN)
 
 def _inputs():
     obs = simulate_observation(CFG)
-    vd = ds.vis_data_from_observation(obs)
+    vd = vis_data_from_observation(obs)
     model = np.zeros((N, N), np.float32)
     model[N // 2, N // 2 + 3] = 1.0
     centers = w_plane_centers(obs, CFG)
@@ -272,7 +273,7 @@ def test_counters_registry_keeps_the_public_readers():
     kernels.reset_drop_counters()
     timing.COUNTERS.reset("launches/wproj_grid")
     timing.launched("wproj_grid")
-    kernels._note_drops("test_gridder", 3, "a test")
+    kernels.note_drops("test_gridder", 3, "a test")
     assert timing.COUNTERS["dropped/test_gridder"] == 3
     assert kernels.drop_counters() == {"test_gridder": 3}
     assert kernels.wproj.launch_count(kernels.wproj.GRID_KERNEL) == 1

@@ -22,11 +22,12 @@ import torch
 
 from ska_sdp_tpu_torch import cli
 from ska_sdp_tpu_torch.config import GridParams, ImagingConfig
-from ska_sdp_tpu_torch.io import h5, schema
+from ska_sdp_tpu_torch.io import h5, inputs, schema
 from ska_sdp_tpu_torch.io.synthetic import (SyntheticConfig, generate_dataset,
                                             simulate_observation,
                                             w_plane_centers)
 from ska_sdp_tpu_torch.models import dataset as ds
+from ska_sdp_tpu_torch.models import runs
 
 jax = pytest.importorskip("jax")
 
@@ -90,7 +91,7 @@ class TestIngest:
 
     def test_get_wkernels_matches_jax(self, bundles):
         (paths, obs), (ref_paths, _) = bundles
-        bank, centers = ds.get_wkernels(paths["wkern"], THETA)
+        bank, centers = inputs.get_wkernels(paths["wkern"], THETA)
         j_bank, j_centers = j_ds.get_wkernels(ref_paths["wkern"], THETA)
         assert bank.shape == (8, 4, 4, 15, 15) and bank.dtype == np.complex128
         np.testing.assert_allclose(bank, j_bank, rtol=1e-12, atol=1e-15)
@@ -106,15 +107,15 @@ class TestIngest:
 
     def test_missing_bank_file(self, tmp_path):
         with pytest.raises(FileNotFoundError, match="does not exist"):
-            ds.get_wkernels(str(tmp_path / "nowhere.h5"), THETA)
+            inputs.get_wkernels(str(tmp_path / "nowhere.h5"), THETA)
 
 
 class TestWImaging:
     def test_w_gridding_matches_jax(self, bundles, double, jax_image):
         (paths, _), _ = bundles
         want_mx, want = jax_image
-        mx, img = ds.w_gridding(paths["wkern"], paths["vis"],
-                                config=double[0], device="cpu")
+        mx, img = runs.w_gridding(paths["wkern"], paths["vis"],
+                                  config=double[0], device="cpu")
         assert img.shape == want.shape == (N, N)
         scale = np.abs(want).max()
         np.testing.assert_allclose(img, want, atol=1e-8 * scale, rtol=0)
@@ -125,8 +126,8 @@ class TestWImaging:
         (paths, _), _ = bundles
         _, want = j_ds.w_gridding(paths["wkern"], paths["vis"], n=n,
                                   config=double[1])
-        vd = ds.load_vis_data(paths["vis"])
-        bank, centers = ds.get_wkernels(paths["wkern"], THETA)
+        vd = inputs.load_vis_data(paths["vis"])
+        bank, centers = inputs.get_wkernels(paths["wkern"], THETA)
         res = ds.w_image(vd, bank, centers, theta=THETA, lam=LAM, n=n,
                          precision="double", device="cpu")
         got = res.image.numpy()
@@ -137,8 +138,8 @@ class TestWImaging:
 
     def test_sources_recovered(self, bundles, double):
         (paths, obs), _ = bundles
-        _, img = ds.w_gridding(paths["wkern"], paths["vis"],
-                               config=double[0], device="cpu")
+        _, img = runs.w_gridding(paths["wkern"], paths["vis"],
+                                 config=double[0], device="cpu")
         for l, m, flux in obs["sources"]:
             iy = int(round(N / 2 + m * LAM))
             ix = int(round(N / 2 + l * LAM))
@@ -151,8 +152,8 @@ class TestWImaging:
 
     def test_single_precision_tracks_double(self, bundles, jax_image):
         (paths, _), _ = bundles
-        vd = ds.load_vis_data(paths["vis"])
-        bank, centers = ds.get_wkernels(paths["wkern"], THETA)
+        vd = inputs.load_vis_data(paths["vis"])
+        bank, centers = inputs.get_wkernels(paths["wkern"], THETA)
         res = ds.w_image(vd, bank, centers, theta=THETA, lam=LAM,
                          device="cpu")
         want = jax_image[1]
@@ -171,9 +172,9 @@ class TestWPredict:
         want, want_peak = j_ds.w_predict(paths["wkern"], paths["vis"], model,
                                          config=double[1])
         out = str(tmp_path / "pred.h5")
-        pred, peak = ds.w_predict(paths["wkern"], paths["vis"], model,
-                                  outfile=out, config=double[0],
-                                  device="cpu")
+        pred, peak = runs.w_predict(paths["wkern"], paths["vis"], model,
+                                    outfile=out, config=double[0],
+                                    device="cpu")
         assert pred.shape == want.shape and pred.dtype == np.complex128
         np.testing.assert_allclose(pred, want, atol=1e-8 * want_peak, rtol=0)
         assert abs(peak - want_peak) < 1e-8 * want_peak
@@ -182,8 +183,8 @@ class TestWPredict:
 
     def test_model_shape_must_match_grid(self, bundles, double):
         (paths, _), _ = bundles
-        vd = ds.load_vis_data(paths["vis"])
-        bank, centers = ds.get_wkernels(paths["wkern"], THETA)
+        vd = inputs.load_vis_data(paths["vis"])
+        bank, centers = inputs.get_wkernels(paths["wkern"], THETA)
         with pytest.raises(ValueError, match="does not match grid"):
             ds.w_predict_vis(vd, bank, centers, np.zeros((N + 1, N + 1)),
                              theta=THETA, lam=LAM, device="cpu")
@@ -227,8 +228,8 @@ class TestCLI:
         assert cli.main(["--make-data", data, "--nant", "6", "--ntime", "4",
                          "--nw", "5", "--qpx", "2", *GEO]) == 0
         assert "wkern.h5" in capsys.readouterr().out
-        bank, centers = ds.get_wkernels(os.path.join(data, "wkern.h5"),
-                                        THETA)
+        bank, centers = inputs.get_wkernels(os.path.join(data, "wkern.h5"),
+                                            THETA)
         assert bank.shape == (5, 2, 2, 15, 15) and centers.shape == (5,)
 
     @pytest.mark.parametrize("mode", [["--mode", "w"],
