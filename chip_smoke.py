@@ -9,7 +9,7 @@ even subgrid, the bank w-projection scatter, which also serves ``--mode
 conv`` and ``wcache`` and every slab of a checkpointed or streamed run,
 and gather, the fused AW gridder).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--crowded]
 
 Phases (each failure raises; the script then exits non-zero and prints no
 result line):
@@ -290,7 +290,16 @@ result line):
     compute and write phase times printed) and ``/img`` is read back:
     within 1e-5 (rel-L2, central 75%) of ``idg_image`` on the same arrays;
     its gridder against the plain gridder.  A build, read or write failure
-    fails the run.
+    fails the run;
+39. the crowded SKA1-Low core (``python3 chip_smoke.py --crowded`` runs
+    it alone, after building the two IDG kernels): the benchmark cell
+    ``idg.cycle``'s own run tables at 3888² (``benchmark/observation.py``,
+    seed 0, sky 0, through ``idg_image``'s and ``idg_predict_vis``'s
+    preps), its longest run and the share of the records the longest 1, 5
+    and 20 runs hold; #1 and #2 alone, each timed with CUDA events (median
+    of 7), within 5e-5 of its plain version, with its work items (item
+    length, items, runs split) and the split counts the kernel made equal
+    to those of the plain items (``run_items``).
 
 Each of phases 31-35 prints its wall time (median of 3 synchronised
 calls), its launches, the time of one ``all_reduce`` of the
@@ -947,6 +956,7 @@ def main() -> int:
     runs = run_surface_phases(torch, dev, card, vd, obs)
     scale = scaleout_phases(torch, dev, card, vd, obs, model)
     edges = edge_phases(torch, dev, card, vd, obs)
+    crowded_phase(torch, dev, card)
 
     print(json.dumps({"kernels": [{
         "name": stream.GRID_KERNEL,
@@ -3649,6 +3659,164 @@ def cross_method_phase(torch, dev, card, vd, obs):
     return entries
 
 
+def idg_cycle_records(torch, dev, seed: int = 0):
+    """The benchmark cell ``idg.cycle``'s run tables at its own 3888²
+    shape: the SKA1-Low snapshot of ``benchmark/configs/ska1low-idg.json``
+    (1,046,528 records) from ``benchmark/observation.py`` at ``seed``, sky
+    0, through the entries' preps (``idg_image``'s weighted mirrored
+    records and ``idg_predict_vis``'s records of the sky's snapped model).
+    Returns ``(grid_args, degrid_args, settings)``: the first seven
+    arguments of ``idg_aw_grid_from_records_stream`` and
+    ``idg_aw_degrid_from_records_stream`` and the two calls' keywords."""
+    from benchmark import observation as obsgen
+    from ska_sdp_tpu_torch.io.inputs import VisData
+    from ska_sdp_tpu_torch.kernels import _idg_unit_run_bound
+    from ska_sdp_tpu_torch.kernels.idg_aw_records import (
+        idg_aw_degrid_records, idg_aw_run_records)
+    from ska_sdp_tpu_torch.models import dataset as ds
+
+    def config(*path):
+        with open(os.path.join(HERE, "benchmark", *path)) as fh:
+            return json.load(fh)
+
+    cfg = config("configs", "ska1low-idg.json")
+    mix = config("mixes", "idg.cycle.json")
+    st = cfg["settings"]
+    S, support, theta, lam = (st["subgrid"], st["support"], st["theta"],
+                              st["lam"])
+    ocfg = obsgen.from_config(cfg, mix["sky"]["sources"], seed)
+    obs = obsgen.simulate_observation(ocfg)
+    src, vis = obsgen.sky(obs, ocfg, 0, dev)
+    vd = VisData(vis, obs["uvw"], obs["antenna1"], obs["antenna2"],
+                 obs["time"], float(obs["frequency"][0]))
+    uvw, f, v = ds.idg_inputs(vd, device=dev)
+    g = ds.idg_grid_inputs(uvw, f, v, theta=theta, lam=lam)
+    zer = torch.zeros((g.p.shape[0],), dtype=torch.int32, device=dev)
+    grid_args = idg_aw_run_records(
+        g.grid_shape, g.p, zer, zer, g.w, g.vis.real, g.vis.imag,
+        subgrid=S, support=support,
+        max_runs=_idg_unit_run_bound(g.grid_shape, S, support), nant=1)[:7]
+    n = int(round(theta * lam))
+    model = torch.as_tensor(obsgen.snapped_model(src, n, lam),
+                            dtype=torch.float32, device=dev)
+    d = ds.degrid_inputs(model, uvw, f, theta=theta, lam=lam, subgrid=S,
+                         taper_beta=st["taper_beta"])
+    shape = tuple(d.grid.shape)
+    zer = torch.zeros((d.p.shape[0],), dtype=torch.int32, device=dev)
+    degrid_args = idg_aw_degrid_records(
+        shape, d.p, zer, zer, d.w, subgrid=S, support=support,
+        max_runs=_idg_unit_run_bound(shape, S, support))[:7]
+    unit = torch.ones((1, S, S), dtype=torch.complex64, device=dev)
+    kw = dict(subgrid=S, taper_beta=st["taper_beta"])
+    return (grid_args, degrid_args,
+            dict(grid=dict(grid_shape=g.grid_shape, screens=unit,
+                           theta=g.theta, **kw),
+                 degrid=dict(grid=d.grid, screens=unit, theta=d.theta,
+                             **kw)))
+
+
+def crowded_phase(torch, dev, card, seed: int = 0):
+    """Phase 39: #1 and #2 alone on ``idg.cycle``'s crowded SKA1-Low core
+    (:func:`idg_cycle_records`): the run table's longest runs and their
+    share, the kernels' work items, each kernel's time (CUDA events,
+    median of 7) beside its plain version's result and the split counts
+    the kernel made against those its plain items give."""
+    from ska_sdp_tpu_torch.kernels import idg_aw_stream as stream
+    from ska_sdp_tpu_torch.ops.idg_aw import PAIR_SHIFT
+    from ska_sdp_tpu_torch.utils import timing
+
+    grid_args, degrid_args, kw = idg_cycle_records(torch, dev, seed)
+    S = kw["grid"]["subgrid"]
+    n_rec = int(grid_args[0].shape[1])
+    m = (grid_args[2] - grid_args[1]).long()
+    m = torch.sort(m[m > 0], descending=True).values
+    share = [float(m[:k].sum()) / float(m.sum()) for k in (1, 5, 20)]
+    print(f"idg.cycle's core (seed {seed}, {n_rec} records, S={S}): "
+          f"{m.numel()} occupied runs, longest {int(m[0])}, median "
+          f"{int(m[m.numel() // 2])}; the longest 1 / 5 / 20 hold "
+          f"{share[0]:.1%} / {share[1]:.1%} / {share[2]:.1%} of the records "
+          f"[{card}]")
+
+    def grid():
+        return stream.idg_aw_grid_from_records_stream(
+            *grid_args, kw["grid"]["grid_shape"], kw["grid"]["screens"],
+            theta=kw["grid"]["theta"], subgrid=S,
+            taper_beta=kw["grid"]["taper_beta"])
+
+    def degrid():
+        return stream.idg_aw_degrid_from_records_stream(
+            *degrid_args, kw["degrid"]["grid"], kw["degrid"]["screens"],
+            theta=kw["degrid"]["theta"], subgrid=S,
+            taper_beta=kw["degrid"]["taper_beta"])
+
+    shape = kw["grid"]["grid_shape"]
+    N, Nx = shape
+    plain_g = stream.grid_from_records_plain(
+        *grid_args, kw["grid"]["screens"], grid_shape=shape,
+        theta=kw["grid"]["theta"], subgrid=S,
+        taper_beta=kw["grid"]["taper_beta"])[S:S + N, S:S + Nx]
+    plain_d = stream.degrid_from_records_plain(
+        *degrid_args, kw["degrid"]["grid"], kw["degrid"]["screens"],
+        theta=kw["degrid"]["theta"], subgrid=S,
+        taper_beta=kw["degrid"]["taper_beta"])
+    for label, fn, plain, args, kernel in (
+            ("#1 idg_grid", grid, plain_g, grid_args, stream.GRID_KERNEL),
+            ("#2 idg_degrid", degrid, plain_d, degrid_args,
+             stream.DEGRID_KERNEL)):
+        starts, ends = args[1], args[2]
+        if kernel == stream.DEGRID_KERNEL:       # starts_ext, sentinels
+            starts = args[1][:-1]
+            ends = torch.where(args[4] < PAIR_SHIFT,
+                               torch.clamp(args[1][1:], max=n_rec), starts)
+        resident = stream.resident_blocks(kernel, S)
+        run, _, _ = stream.run_items(starts, ends, int(args[0].shape[1]),
+                                     resident, S)
+        want = stream.split_counts(run)
+        timing.COUNTERS.reset("split/")
+        out = fn()
+        torch.cuda.synchronize()
+        timing.settle_counts()
+        key = "idg_grid" if kernel == stream.GRID_KERNEL else "idg_degrid"
+        got = timing.COUNTERS.group(f"split/{key}/")
+        err = rel_l2(out.cpu().numpy(), plain.cpu().numpy())
+        ms = timed_ms(torch, fn)
+        print(f"  {label}: {ms:.3f} ms (median of {REPS}); {resident} "
+              f"resident blocks, items of L = "
+              f"{stream.item_length(int(args[0].shape[1]), resident, S)}: "
+              f"{run.numel()} items, {want[0]} runs split into {want[1]}; "
+              f"the kernel counted {got}; rel-L2 {err:.2e} from the plain "
+              f"version [{card}]")
+        if got != {"runs": want[0], "items": want[1]}:
+            raise AssertionError(f"{label}: split counts {got}, plain "
+                                 f"items {want}")
+        if not err <= KERNEL_TOL:
+            raise AssertionError(f"{label}: rel-L2 {err}")
+
+
+def crowded_main() -> int:
+    """``--crowded``: phase 39 alone, after phases 1 and 2 of the IDG
+    kernels."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("error: no CUDA device visible; this smoke test runs only on "
+              "a GPU", file=sys.stderr)
+        return 1
+    from ska_sdp_tpu_torch.kernels import _build
+
+    card = smi()
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device "
+          f"{torch.cuda.get_device_name(0)}; nvidia-smi: {card}")
+    for k in ("idg_grid", "idg_degrid"):
+        t = time.perf_counter()
+        _build.load(k)
+        print(f"build: {k}.cu for sm_90a in {time.perf_counter() - t:.1f} s")
+        print_ptxas(_build.build_log, k, padded=False)
+    crowded_phase(torch, torch.device("cuda", 0), card)
+    print(card)
+    return 0
+
+
 def hdf5_phase(torch, dev, card, vd, obs):
     """Phase 38: the CLI's ``--mode idg`` file entry on the card through
     the native HDF5 backend, where the card's machine has an HDF5 1.10
@@ -3725,4 +3893,4 @@ def hdf5_phase(torch, dev, card, vd, obs):
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(crowded_main() if sys.argv[1:] == ["--crowded"] else main())

@@ -18,11 +18,13 @@ takes it); ``aw_fused_grid`` at the benchmark's fused-AW shape (phase 16b:
 1,046,528 records); ``idg_aw_grid_from_records_stream`` (``idg_grid``) on
 the main path's records at S=64 (phase 3b, unit screens), on channel 0 of
 the cube observation through the IDG prep and through the IDG-AW cube
-raster's ordered prep (phase 25), and at the IDG-AW track shape with
-random screens (phase 9), each with its run table's longest and mean run;
-``idg_aw_degrid_from_records_stream`` (``idg_degrid``) on the main path's
-degrid records at S=64 (phase 7b, unit screens) and at the IDG-AW track
-shape (phase 9, random screens), each degridding a random 2400² grid;
+raster's ordered prep (phase 25), at the IDG-AW track shape with random
+screens (phase 9) and on the benchmark cell ``idg.cycle``'s crowded
+3888² run table (phase 39), each with its run table's longest and mean
+run; ``idg_aw_degrid_from_records_stream`` (``idg_degrid``) on the main
+path's degrid records at S=64 (phase 7b, unit screens) and at the IDG-AW
+track shape (phase 9, random screens), each degridding a random 2400²
+grid, and on ``idg.cycle``'s predict table and model grid (phase 39);
 ``wproj_degridder`` (``wproj_degrid``) at the bank benchmark's shape
 (phase 12b, its random grid) and on ``w_predict_vis``'s records of the
 512-station observation (the raw bank, a random grid).  The fixed-tile
@@ -165,7 +167,7 @@ def idg_grid_cases(torch, dev):
     from chip_smoke import (BETA, LAM, SUBGRID, SUPPORT, THETA,
                             aw_cube_inputs, aw_track_inputs, cube_akerns,
                             cube_channel_prep, cube_observation,
-                            main_observation, run_stats)
+                            idg_cycle_records, main_observation, run_stats)
     from ska_sdp_tpu_torch.kernels import _idg_unit_run_bound
     from ska_sdp_tpu_torch.kernels.idg_aw_records import (
         idg_aw_records_for_channel, idg_aw_run_records)
@@ -227,6 +229,11 @@ def idg_grid_cases(torch, dev):
         nant=t.nant)
     add("idg_grid, IDG-AW track shape", recs[:7], ga.grid_shape, scr,
         ga.theta)
+
+    # the benchmark cell idg.cycle's crowded SKA1-Low core (phase 39)
+    grid_args, _, kw = idg_cycle_records(torch, dev)
+    add("idg_grid, idg.cycle core", grid_args, kw["grid"]["grid_shape"],
+        kw["grid"]["screens"], kw["grid"]["theta"])
     return cases
 
 
@@ -241,7 +248,8 @@ def idg_degrid_cases(torch, dev):
     label names its run table's occupied runs, longest and mean run."""
     import numpy as np
     from chip_smoke import (BETA, LAM, SUBGRID, SUPPORT, THETA,
-                            aw_track_inputs, main_observation, run_stats)
+                            aw_track_inputs, idg_cycle_records,
+                            main_observation, run_stats)
     from ska_sdp_tpu_torch.kernels import _idg_unit_run_bound
     from ska_sdp_tpu_torch.kernels.idg_aw_records import (
         idg_aw_degrid_records)
@@ -287,6 +295,11 @@ def idg_degrid_cases(torch, dev):
         max_runs=ds.aw_run_bound(t.vd.antenna1, t.vd.antenna2, t.n))
     add("idg_degrid, IDG-AW track shape", recs[:7],
         _random_grid(torch, dev, tuple(d.grid.shape), 7), scr, d.theta)
+
+    # the benchmark cell idg.cycle's crowded SKA1-Low core (phase 39)
+    _, degrid_args, kw = idg_cycle_records(torch, dev)
+    add("idg_degrid, idg.cycle core", degrid_args, kw["degrid"]["grid"],
+        kw["degrid"]["screens"], kw["degrid"]["theta"])
     return cases
 
 

@@ -79,13 +79,24 @@
 //   to run.  Sentinel runs (out-of-bounds and unfit records, pair id 2¹⁵)
 //   are skipped and records past the run table belong to no run: the
 //   wrapper's zero-filled output keeps all of them at exactly 0, as the
-//   reference's `use` mask does.  Blocks take runs in table order.
+//   reference's `use` mask does;
+// * blocks take work items (idg_plan.cuh), not whole runs: a run of more
+//   than L records is split into items of L, and each item computes the
+//   run's prologue itself (bitwise the same in every item: it depends
+//   only on the run) and predicts its own records, so a crowded tile no
+//   longer holds the launch on one block.  Block E + r takes the first
+//   item of run r, in table order; the split runs' other items come
+//   first, in blocks [0, E) (E = ⌊n/L⌋ + 1 bounds their count), from a
+//   table that a grid-wide pass (idg_degrid_kernel_items, one thread a
+//   run) fills before the launch, each split run reserving its slots with
+//   one atomic; a block past the table's count exits.
 //
 // C interface for ctypes: idg_degrid_stream() launches on the given stream,
 // does not synchronise, and returns cudaGetLastError().
 
 #include <atomic>
 
+#include "idg_plan.cuh"
 #include "split_f16.cuh"
 
 namespace {
@@ -95,6 +106,10 @@ static_assert(kChunk == 32, "the final sum takes one record a thread");
 constexpr int kRecRows = 3;              // dy, dx, w
 constexpr int kRecStages = 3;
 constexpr int kPairShift = 1 << 15;      // sentinel runs decode ia1 = 2¹⁵
+// The launch's int scratch: the counters, then the split runs' items past
+// their first as (run, piece) pairs, at most `extra` of them.
+enum Counter { kExtra, kSplitRuns, kSplitItems, kCounters = 4 };
+constexpr int kItemThreads = 256;
 
 // Resident blocks per SM.
 template <int SP> struct Tile {
@@ -140,11 +155,33 @@ __device__ __forceinline__ int block_max_exponent(float m, int* slots,
   return r;
 }
 
+// The split runs' items past their first into `items` (one thread a run;
+// sentinel runs are never gridded, so never split), and the counters
+// (zeroed before the launch).
+__global__ void __launch_bounds__(kItemThreads)
+idg_degrid_kernel_items(const int* __restrict__ starts,
+                        const int* __restrict__ ends,
+                        const int* __restrict__ ia1s, int n_runs, int L,
+                        int* __restrict__ counters,
+                        int2* __restrict__ items) {
+  const int run = blockIdx.x * kItemThreads + threadIdx.x;
+  if (run >= n_runs || ia1s[run] >= kPairShift) return;
+  const int k = idg_plan::item_count(ends[run] - starts[run], L);
+  if (k <= 1) return;
+  const int slot = atomicAdd(counters + kExtra, k - 1);
+  for (int j = 1; j < k; ++j) items[slot + j - 1] = make_int2(run, j);
+  atomicAdd(counters + kSplitRuns, 1);
+  atomicAdd(counters + kSplitItems, k);
+}
+
 // S = SP, or with kPad the true subgrid s_true < SP: W, the phase factors
-// and so I are zero from s_true on.
+// and so I are zero from s_true on.  Block x < extra takes the split runs'
+// item x, while the table holds one; block extra + r takes run r's first.
 template <int SP, bool kPad>
 __global__ void __launch_bounds__(Geo<SP>::kThreads, Tile<SP>::kMinBlocks)
 idg_degrid_kernel(const float* __restrict__ recs, int64_t n_stride,
+                  const int2* __restrict__ items,
+                  const int* __restrict__ counters, int extra, int L,
                   const int* __restrict__ starts, const int* __restrict__ ends,
                   const int* __restrict__ y0s, const int* __restrict__ x0s,
                   const int* __restrict__ ia1s, const int* __restrict__ ia2s,
@@ -162,9 +199,15 @@ idg_degrid_kernel(const float* __restrict__ recs, int64_t n_stride,
   constexpr int kPlaneE = G::kPlaneE;
   constexpr int kWarps = G::kThreads / 32;
   const int S = kPad ? s_true : SP;
-  const int run = blockIdx.x;
-  const int start = starts[run];
-  const int end = ends[run];
+  int run = int(blockIdx.x) - extra, piece = 0;
+  if (run < 0) {                           // an item past a run's first
+    if (int(blockIdx.x) >= counters[kExtra]) return;
+    const int2 it = items[blockIdx.x];
+    run = it.x;
+    piece = it.y;
+  }
+  int start, end;
+  idg_plan::item_slice(starts[run], ends[run], piece, L, &start, &end);
   if (end <= start || ia1s[run] >= kPairShift) return;
 
   extern __shared__ float4 smem_raw[];
@@ -566,17 +609,18 @@ idg_degrid_kernel(const float* __restrict__ recs, int64_t n_stride,
 
 // The kernel's shared-memory attributes, set once per template instance and
 // device (they are runtime API calls, and every degridding call passes
-// here); a failure is cleared from the runtime's last error, so that the
-// next launch reports only its own, returned, and tried again on the next
-// call.
+// here), and the blocks the device holds at once, from which the launch
+// sizes its items; a failure is cleared from the runtime's last error, so
+// that the next launch reports only its own, returned, and tried again on
+// the next call.
 template <int SP, bool kPad>
-cudaError_t set_attributes() {
+cudaError_t set_attributes(int* resident) {
   constexpr int kMaxDevices = 64;
-  static std::atomic<bool> done[kMaxDevices];
+  static std::atomic<int> blocks[kMaxDevices];
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess && dev < kMaxDevices &&
-      done[dev].load(std::memory_order_acquire))
+      (*resident = blocks[dev].load(std::memory_order_acquire)) > 0)
     return cudaSuccess;
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(idg_degrid_kernel<SP, kPad>,
@@ -586,39 +630,64 @@ cudaError_t set_attributes() {
     err = cudaFuncSetAttribute(idg_degrid_kernel<SP, kPad>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                int(cudaSharedmemCarveoutMaxShared));
+  int per_sm = 0, sms = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, idg_degrid_kernel<SP, kPad>, Geo<SP>::kThreads,
+        Geo<SP>::kSmem);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) {
     cudaGetLastError();
     return err;
   }
-  if (dev < kMaxDevices) done[dev].store(true, std::memory_order_release);
+  *resident = per_sm * sms > 0 ? per_sm * sms : 1;
+  if (dev < kMaxDevices)
+    blocks[dev].store(*resident, std::memory_order_release);
   return cudaSuccess;
 }
 
 template <int SP, bool kPad>
-cudaError_t launch(const float* recs, int64_t n_stride, const int* starts,
-                   const int* ends, const int* y0, const int* x0,
-                   const int* ia1, const int* ia2, int n_runs,
-                   const int* order, const float2* scr, int nant,
-                   const __half* Hp, const float2* grid, int N, int Nx, int S,
-                   float two_pi_s, float theta_s, float theta_x_s,
-                   float2* out, cudaStream_t stream) {
+cudaError_t launch(const float* recs, int64_t n_stride, int* scratch,
+                   int extra, const int* starts, const int* ends,
+                   const int* y0, const int* x0, const int* ia1,
+                   const int* ia2, int n_runs, const int* order,
+                   const float2* scr, int nant, const __half* Hp,
+                   const float2* grid, int N, int Nx, int S, float two_pi_s,
+                   float theta_s, float theta_x_s, float2* out,
+                   cudaStream_t stream) {
   using G = Geo<SP>;
-  const cudaError_t err = set_attributes<SP, kPad>();
+  if (extra < idg_plan::extra_items(n_stride, S)) return cudaErrorInvalidValue;
+  int resident = 0;
+  cudaError_t err = set_attributes<SP, kPad>(&resident);
   if (err != cudaSuccess) return err;
-  idg_degrid_kernel<SP, kPad><<<n_runs, G::kThreads, G::kSmem, stream>>>(
-      recs, n_stride, starts, ends, y0, x0, ia1, ia2, order, scr, nant, Hp,
-      grid, N, Nx, S, two_pi_s, theta_s, theta_x_s, out);
+  const int L = idg_plan::item_length(n_stride, resident, S);
+  const int E = static_cast<int>(n_stride / L) + 1;
+  auto items = reinterpret_cast<int2*>(scratch + kCounters);
+  err = cudaMemsetAsync(scratch, 0, kCounters * sizeof(int), stream);
+  if (err != cudaSuccess) return err;
+  idg_degrid_kernel_items<<<(n_runs + kItemThreads - 1) / kItemThreads,
+                            kItemThreads, 0, stream>>>(
+      starts, ends, ia1, n_runs, L, scratch, items);
+  idg_degrid_kernel<SP, kPad><<<E + n_runs, G::kThreads, G::kSmem, stream>>>(
+      recs, n_stride, items, scratch, E, L, starts, ends, y0, x0, ia1, ia2,
+      order, scr, nant, Hp, grid, N, Nx, S, two_pi_s, theta_s, theta_x_s,
+      out);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// H_planes: [4, SP, SP] fp16, the hi/lo planes (re hi, re lo, im hi, im
-// lo) of 16·S·Fᴴ zero-padded to SP = padded_side(S)
-// (kernels/idg_aw_stream.py::_dft_planes_adjoint); screens: [nant, SP, SP]
-// complex64, zero outside S × S; grid: the [N, Nx] complex64 model grid,
-// contiguous; y0, x0: run origins in the padded grid [N + 2S, Nx + 2S].
+// scratch: 4 + 2·extra ints (the counters and the split runs' further
+// items; extra ≥ idg_plan::extra_items(n_stride, S),
+// kernels/idg_aw_stream.py::extra_items); H_planes: [4, SP, SP] fp16, the
+// hi/lo planes (re hi, re lo, im hi, im lo) of 16·S·Fᴴ zero-padded to SP =
+// padded_side(S) (kernels/idg_aw_stream.py::_dft_planes_adjoint); screens:
+// [nant, SP, SP] complex64, zero outside S × S; grid: the [N, Nx] complex64
+// model grid, contiguous; y0, x0: run origins in the padded grid [N + 2S,
+// Nx + 2S].
 extern "C" int idg_degrid_stream(const void* recs, long long n_stride,
+                                 void* scratch, int extra,
                                  const void* starts, const void* ends,
                                  const void* y0, const void* x0,
                                  const void* ia1, const void* ia2,
@@ -630,6 +699,7 @@ extern "C" int idg_degrid_stream(const void* recs, long long n_stride,
                                  void* stream) {
   if (n_runs <= 0) return int(cudaGetLastError());
   auto r = static_cast<const float*>(recs);
+  auto sc_ = static_cast<int*>(scratch);
   auto st = static_cast<const int*>(starts);
   auto en = static_cast<const int*>(ends);
   auto yy = static_cast<const int*>(y0);
@@ -644,9 +714,20 @@ extern "C" int idg_degrid_stream(const void* recs, long long n_stride,
   auto s = static_cast<cudaStream_t>(stream);
   return int(dispatch_subgrid(S, [&](auto sp, auto pad) {
     return launch<decltype(sp)::value, decltype(pad)::value>(
-        r, n_stride, st, en, yy, xx, a1, a2, n_runs, od, sc, nant, hp, g, N,
-        Nx, S, two_pi_s, theta_s, theta_x_s, o, s);
+        r, n_stride, sc_, extra, st, en, yy, xx, a1, a2, n_runs, od, sc,
+        nant, hp, g, N, Nx, S, two_pi_s, theta_s, theta_x_s, o, s);
   }));
+}
+
+// The blocks of subgrid S's instance that the device holds at once (from
+// which the degridder sizes its items), or a negative CUDA error code.
+extern "C" int idg_degrid_resident(int S) {
+  int resident = 0;
+  const cudaError_t err = dispatch_subgrid(S, [&](auto sp, auto pad) {
+    return set_attributes<decltype(sp)::value, decltype(pad)::value>(
+        &resident);
+  });
+  return err == cudaSuccess ? resident : -int(err);
 }
 
 extern "C" const char* idg_degrid_error_string(int code) {

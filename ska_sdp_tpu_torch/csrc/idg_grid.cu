@@ -72,19 +72,28 @@
 //   shared memory at S ≤ 64, read through L1 above); the patch is
 //   added with one float2 atomic per cell.  Neighbouring runs' patches
 //   overlap, so the sum order on the grid is not fixed;
-// * blocks take runs longest first: the launch first sorts the run table
-//   by length class (run_order_kernel, a one-block counting sort, 4
-//   classes an octave; an argsort through PyTorch cost 0.13 ms, a fifth of
-//   the gridder), then as many blocks as the device holds at once take the
-//   runs in that order by an atomic counter, so the longest runs start
-//   first, a free block takes the next run, and the empty entries, last,
-//   cost one read each (a fixed-tile table is mostly empty subgrids).
+// * blocks take work items (idg_plan.cuh), longest first: a run of more
+//   than L records is split into items of L, each gridded on its own
+//   (its own accumulator, screen, sandwich and patch added by the same
+//   atomics), so one crowded tile no longer holds the launch on one block
+//   (the SKA1-Low core's longest run is ~25 times a block's even share).
+//   The launch first sorts the run table by length class (run_order_kernel,
+//   a one-block counting sort, 4 classes an octave; an argsort through
+//   PyTorch cost 0.13 ms, a fifth of the gridder), the split runs' items
+//   in a class above every other, and counts the items in that pass; then
+//   as many blocks as the device holds at once take the items in that
+//   order by an atomic counter, so the longest start first and a free
+//   block takes the next.  Empty entries are left out of the order, and
+//   a warp's step over empty entries ends at one vote (a table is mostly
+//   empty entries: the prep's run bound, a fixed-tile table's empty
+//   subgrids).
 //
 // C interface for ctypes: idg_grid_stream() launches on the given stream,
 // does not synchronise, and returns cudaGetLastError().
 
 #include <atomic>
 
+#include "idg_plan.cuh"
 #include "split_f16.cuh"
 
 namespace {
@@ -95,7 +104,14 @@ constexpr int kLd = kChunk + 8;        // fp16 row pitch of a chunk plane
 constexpr int kPlanes = 8;             // u_re, u_im, e_re, e_im; hi and lo
 constexpr int kRecRows = 5;            // dy, dx, w, vis_re, vis_im
 constexpr int kClasses = 128;          // run-length classes of the order
+constexpr int kSplitClass = kClasses - 1;  // items of split runs, first
 constexpr int kOrderThreads = 1024;
+// The launch's int scratch: the counters, then the order of the items
+// (run-table indices, at most n_runs + extra), then the pieces of the
+// split runs' items, which the order puts first (at most 2·extra:
+// ⌈m/L⌉ ≤ 2·m/L for m > L), then the split runs (fewer than extra).
+enum Counter { kNext, kOutside, kEntries, kSplitRuns, kSplitItems,
+               kCounters = 8 };
 
 // Warp tile 16 × 8·NT of the SP×SP products (NT even: cmma2 takes tile
 // pairs), and resident blocks per SM.
@@ -147,79 +163,112 @@ __device__ __forceinline__ int length_class(int n) {
   return 4 * e + m + 1;
 }
 
-// The run order: run-table indices by descending length class (a counting
-// sort in one block; the order inside a class is arbitrary), and the
-// gridder's two counters after it zeroed (order[n], the next run to take;
-// order[n + 1], the runs skipped for leaving the grid).  A table can be mostly
-// empty entries (a fixed-tile one, 23,409 at S = 32 on the main path): the
-// block reads kOrderUnroll entries a thread at once, so that their loads
-// overlap, and takes one shared atomic per class present in a warp.
+// The item order: the run-table indices of the items, by descending length
+// class (a counting sort in one block; the order inside a class is
+// arbitrary), the split runs' items first (kSplitClass) with their pieces
+// beside them; and the counters (kNext, kOutside zeroed; kEntries the
+// items in the order; kSplitRuns, kSplitItems the split runs and their
+// items).  Empty entries are left out, and a warp's step over entries that
+// are all empty ends at one vote: a table is mostly empty entries (the
+// prep's run bound; a fixed-tile table's empty subgrids).  The block reads
+// kOrderUnroll entries a thread at once, so that their loads overlap, and
+// takes one shared atomic per class present in a warp.  The first pass
+// lists the split runs (a few a table, or none) in `split`, and a loop
+// over that list places their items.
 constexpr int kOrderUnroll = 4;
 
 __global__ void __launch_bounds__(kOrderThreads)
 run_order_kernel(const int* __restrict__ starts, const int* __restrict__ ends,
-                 int n, int* __restrict__ order) {
+                 int n, int L, int* __restrict__ counters,
+                 int* __restrict__ order, int* __restrict__ piece,
+                 int* __restrict__ split) {
   __shared__ int slot[kClasses];
+  __shared__ int n_split;
   const int lane = threadIdx.x & 31;
-  // the classes of entries b + u·blockDim.x + threadIdx.x (−1 past n)
-  auto classes = [&](int b, int (&cls)[kOrderUnroll]) {
+  // the lengths and classes of entries b + u·blockDim.x + threadIdx.x
+  // (class −1 past n and for an empty entry)
+  auto classes = [&](int b, int (&m)[kOrderUnroll],
+                     int (&cls)[kOrderUnroll]) {
 #pragma unroll
     for (int u = 0; u < kOrderUnroll; ++u) {
       const int i = b + u * kOrderThreads + threadIdx.x;
-      cls[u] = i < n ? length_class(ends[i] - starts[i]) : -1;
+      m[u] = i < n ? ends[i] - starts[i] : 0;
+      cls[u] = m[u] <= 0 ? -1 : m[u] > L ? kSplitClass : length_class(m[u]);
     }
   };
   for (int c = threadIdx.x; c < kClasses; c += blockDim.x) slot[c] = 0;
+  if (threadIdx.x == 0) n_split = 0;
   __syncthreads();
   for (int b = 0; b < n; b += kOrderUnroll * kOrderThreads) {
-    int cls[kOrderUnroll];
-    classes(b, cls);
+    int m[kOrderUnroll], cls[kOrderUnroll];
+    classes(b, m, cls);
 #pragma unroll
     for (int u = 0; u < kOrderUnroll; ++u) {
+      if (!__any_sync(0xffffffffu, cls[u] >= 0)) continue;
       const unsigned peers = __match_any_sync(0xffffffffu, cls[u]);
-      if (cls[u] >= 0 && lane == __ffs(peers) - 1)
+      if (cls[u] == kSplitClass) {
+        split[atomicAdd(&n_split, 1)] = b + u * kOrderThreads + threadIdx.x;
+        atomicAdd(&slot[kSplitClass], idg_plan::item_count(m[u], L));
+      } else if (cls[u] >= 0 && lane == __ffs(peers) - 1) {
         atomicAdd(&slot[cls[u]], __popc(peers));
+      }
     }
   }
   __syncthreads();
   if (threadIdx.x == 0) {
+    counters[kNext] = 0;
+    counters[kOutside] = 0;
+    counters[kSplitRuns] = n_split;
+    counters[kSplitItems] = slot[kSplitClass];
     int acc = 0;
     for (int c = kClasses - 1; c >= 0; --c) {
       const int h = slot[c];
       slot[c] = acc;
       acc += h;
     }
-    order[n] = 0;
-    order[n + 1] = 0;
+    counters[kEntries] = acc;
   }
   __syncthreads();
+  for (int x = threadIdx.x; x < n_split; x += blockDim.x) {
+    const int i = split[x];
+    const int k = idg_plan::item_count(ends[i] - starts[i], L);
+    const int pos = atomicAdd(&slot[kSplitClass], k);
+    for (int j = 0; j < k; ++j) {
+      order[pos + j] = i;
+      piece[pos + j] = j;
+    }
+  }
   for (int b = 0; b < n; b += kOrderUnroll * kOrderThreads) {
-    int cls[kOrderUnroll];
-    classes(b, cls);
+    int m[kOrderUnroll], cls[kOrderUnroll];
+    classes(b, m, cls);
 #pragma unroll
     for (int u = 0; u < kOrderUnroll; ++u) {
+      if (!__any_sync(0xffffffffu, cls[u] >= 0)) continue;
       const unsigned peers = __match_any_sync(0xffffffffu, cls[u]);
+      // a group of empty entries or split runs (placed above) skips the
+      // shuffle whole
+      if (cls[u] < 0 || cls[u] == kSplitClass) continue;
       const int leader = __ffs(peers) - 1;
       int pos = 0;
-      if (cls[u] >= 0 && lane == leader)
-        pos = atomicAdd(&slot[cls[u]], __popc(peers));
+      if (lane == leader) pos = atomicAdd(&slot[cls[u]], __popc(peers));
       pos = __shfl_sync(peers, pos, leader) +
             __popc(peers & ((1u << lane) - 1u));
-      if (cls[u] >= 0) order[pos] = b + u * kOrderThreads + threadIdx.x;
+      order[pos] = b + u * kOrderThreads + threadIdx.x;
     }
   }
 }
 
 // S = SP, or with kPad the true subgrid s_true < SP: rows and columns q ≥
 // s_true of the products are zero, and only the s_true² patch is added.
-// Each block takes runs in the run order by the counter counters[0] until
-// the order runs out or reaches the empty entries; counters[1] becomes
-// nonzero if a run was skipped because its patch would leave the grid.
+// Each block takes work items (of L records at most) in the item order by
+// the counter counters[kNext] until the order runs out; counters[kOutside]
+// becomes nonzero if an item was skipped because its patch would leave
+// the grid.
 template <int SP, bool kPad>
 __global__ void __launch_bounds__(Geo<SP>::kThreads, Tile<SP>::kMinBlocks)
 idg_grid_kernel(const float* __restrict__ recs, int64_t n_stride,
-                const int* __restrict__ order, int n_runs,
-                int* __restrict__ counters,
+                const int* __restrict__ order, const int* __restrict__ piece,
+                int L, int* __restrict__ counters,
                 const int* __restrict__ starts, const int* __restrict__ ends,
                 const int* __restrict__ y0s, const int* __restrict__ x0s,
                 const int* __restrict__ ia1s, const int* __restrict__ ia2s,
@@ -247,23 +296,26 @@ idg_grid_kernel(const float* __restrict__ recs, int64_t n_stride,
   const float pi_f = 3.14159265358979323846f;
   const uint32_t* F32 = reinterpret_cast<const uint32_t*>(Fp);
   __shared__ int next_s;
+  const int n_items = counters[kEntries];
+  const int n_split = counters[kSplitItems];   // first in the order
 
 #pragma unroll 1
   for (;;) {
     __syncthreads();                         // every thread has read next_s
-    if (tid == 0) next_s = atomicAdd(counters, 1);
+    if (tid == 0) next_s = atomicAdd(counters + kNext, 1);
     __syncthreads();
-    if (next_s >= n_runs) break;
+    if (next_s >= n_items) break;
     const int run = order[next_s];
-    const int start = starts[run];
-    const int end = ends[run];
-    if (end <= start) break;                 // the order puts these last
+    int start, end;
+    idg_plan::item_slice(starts[run], ends[run],
+                         next_s < n_split ? piece[next_s] : 0, L, &start,
+                         &end);
     const int y0 = y0s[run];
     const int x0 = x0s[run];
-    // a run whose patch would leave the padded grid adds nothing, and is
+    // an item whose patch would leave the padded grid adds nothing, and is
     // counted (kernels/idg_tile.py raises on it)
     if (y0 < 0 || x0 < 0 || y0 > HP - S || x0 > WP - S) {
-      if (tid == 0) counters[1] = 1;
+      if (tid == 0) counters[kOutside] = 1;
       continue;
     }
 
@@ -389,7 +441,7 @@ idg_grid_kernel(const float* __restrict__ recs, int64_t n_stride,
       __syncthreads();
     }
 
-    // ---- run epilogue ----------------------------------------------------
+    // ---- item epilogue ---------------------------------------------------
     __half* T = smem;                 // t, then B: 4 planes [SP][kLdT]
     __half* Fs = smem + 4 * kPlaneT;  // F's 4 planes (kFShared)
     if constexpr (G::kFShared) {
@@ -433,7 +485,7 @@ idg_grid_kernel(const float* __restrict__ recs, int64_t n_stride,
                                fabsf(im[nt][2 * h + c])));
           }
         }
-      // the run's scale 2^(4 − e_t), max |t| < 2^e_t: |t| < 16 in fp16
+      // the item's scale 2^(4 − e_t), max |t| < 2^e_t: |t| < 16 in fp16
       __shared__ int e_warp[32];
       e_t = warp_max_exponent(m);
       if (lane == 0) e_warp[warp] = e_t;
@@ -616,34 +668,42 @@ cudaError_t set_attributes(int* resident) {
 }
 
 template <int SP, bool kPad>
-cudaError_t launch(const float* recs, int64_t n_stride, int* order,
-                   const int* starts, const int* ends, const int* y0,
-                   const int* x0, const int* ia1, const int* ia2, int n_runs,
-                   const float2* scr, int nant, const __half* Fp,
-                   float2* grid, int HP, int WP, int S, float two_pi_s,
-                   float theta_s, float theta_x_s, cudaStream_t stream) {
+cudaError_t launch(const float* recs, int64_t n_stride, int* scratch,
+                   int extra, const int* starts, const int* ends,
+                   const int* y0, const int* x0, const int* ia1,
+                   const int* ia2, int n_runs, const float2* scr, int nant,
+                   const __half* Fp, float2* grid, int HP, int WP, int S,
+                   float two_pi_s, float theta_s, float theta_x_s,
+                   cudaStream_t stream) {
   using G = Geo<SP>;
+  if (extra < idg_plan::extra_items(n_stride, S)) return cudaErrorInvalidValue;
   int resident = 0;
   const cudaError_t err = set_attributes<SP, kPad>(&resident);
   if (err != cudaSuccess) return err;
-  run_order_kernel<<<1, kOrderThreads, 0, stream>>>(starts, ends, n_runs,
-                                                     order);
-  const int blocks = n_runs < resident ? n_runs : resident;
+  const int L = idg_plan::item_length(n_stride, resident, S);
+  int* order = scratch + kCounters;
+  int* piece = order + n_runs + extra;
+  run_order_kernel<<<1, kOrderThreads, 0, stream>>>(
+      starts, ends, n_runs, L, scratch, order, piece, piece + 2 * extra);
+  const long long items = static_cast<long long>(n_runs) + extra;
+  const int blocks = items < resident ? static_cast<int>(items) : resident;
   idg_grid_kernel<SP, kPad><<<blocks, G::kThreads, G::kSmem, stream>>>(
-      recs, n_stride, order, n_runs, order + n_runs, starts, ends, y0, x0,
-      ia1, ia2, scr, nant, Fp, grid, HP, WP, S, two_pi_s, theta_s,
-      theta_x_s);
+      recs, n_stride, order, piece, L, scratch, starts, ends, y0, x0, ia1,
+      ia2, scr, nant, Fp, grid, HP, WP, S, two_pi_s, theta_s, theta_x_s);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// order: scratch for n_runs + 2 ints (the run order and the two counters);
-// screens: [nant, SP, SP] complex64 and F_planes: [4, SP, SP]
-// fp16, SP = padded_side(S) (kernels/idg_aw_stream.py), zero outside S × S;
-// grid: the padded [HP, WP] = [N + 2S, Nx + 2S] complex64 grid.
+// scratch: kCounters + n_runs + 4·extra ints (the counters, the item order,
+// the split runs' pieces and the split runs; extra ≥
+// idg_plan::extra_items(n_stride, S),
+// kernels/idg_aw_stream.py::extra_items); screens: [nant, SP, SP]
+// complex64 and F_planes: [4, SP, SP] fp16, SP = padded_side(S)
+// (kernels/idg_aw_stream.py), zero outside S × S; grid: the padded [HP, WP]
+// = [N + 2S, Nx + 2S] complex64 grid.
 extern "C" int idg_grid_stream(const void* recs, long long n_stride,
-                               void* order, const void* starts,
+                               void* scratch, int extra, const void* starts,
                                const void* ends, const void* y0,
                                const void* x0, const void* ia1,
                                const void* ia2, int n_runs,
@@ -653,7 +713,7 @@ extern "C" int idg_grid_stream(const void* recs, long long n_stride,
                                float theta_x_s, void* stream) {
   if (n_runs <= 0) return int(cudaGetLastError());
   auto r = static_cast<const float*>(recs);
-  auto od = static_cast<int*>(order);
+  auto sc_ = static_cast<int*>(scratch);
   auto st = static_cast<const int*>(starts);
   auto en = static_cast<const int*>(ends);
   auto yy = static_cast<const int*>(y0);
@@ -666,9 +726,21 @@ extern "C" int idg_grid_stream(const void* recs, long long n_stride,
   auto s = static_cast<cudaStream_t>(stream);
   return int(dispatch_subgrid(S, [&](auto sp, auto pad) {
     return launch<decltype(sp)::value, decltype(pad)::value>(
-        r, n_stride, od, st, en, yy, xx, a1, a2, n_runs, sc, nant, fp, g,
-        HP, WP, S, two_pi_s, theta_s, theta_x_s, s);
+        r, n_stride, sc_, extra, st, en, yy, xx, a1, a2, n_runs, sc, nant,
+        fp, g, HP, WP, S, two_pi_s, theta_s, theta_x_s, s);
   }));
+}
+
+// The blocks of subgrid S's instance that the device holds at once (the
+// gridder's launch width, from which it sizes its items), or a negative
+// CUDA error code.
+extern "C" int idg_grid_resident(int S) {
+  int resident = 0;
+  const cudaError_t err = dispatch_subgrid(S, [&](auto sp, auto pad) {
+    return set_attributes<decltype(sp)::value, decltype(pad)::value>(
+        &resident);
+  });
+  return err == cudaSuccess ? resident : -int(err);
 }
 
 extern "C" const char* idg_grid_error_string(int code) {

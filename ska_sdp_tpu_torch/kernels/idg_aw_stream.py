@@ -45,7 +45,7 @@ import torch
 
 from ..ops.idg import _dft_matrix, kaiser_taper
 from ..ops.idg_aw import PAIR_SHIFT
-from ..utils.timing import launch_counters, launched, span
+from ..utils.timing import count_on_card, launch_counters, launched, span
 from ._build import bind
 from .idg_aw_records import idg_aw_degrid_records, idg_aw_run_records
 
@@ -155,9 +155,64 @@ def run_order(starts, ends):
     ``run_order_kernel``, which runs in the same launch): run-table indices
     by descending :func:`length_class`, int32.  Empty entries come last.
     Here ties keep table order; the kernel's counting sort leaves the order
-    inside a class arbitrary."""
+    inside a class arbitrary.  The kernel orders work items
+    (:func:`run_items`): it leaves the empty entries out and puts every
+    item of a split run first, ahead of the runs of L records or fewer."""
     return torch.argsort(length_class(ends - starts), descending=True,
                          stable=True).to(torch.int32)
+
+
+ITEM_FLOOR = 32          # records a subgrid side, the least item length
+ITEM_ALIGN = 32          # the kernels' record chunk
+
+
+def item_length(n_records: int, resident: int, S: int) -> int:
+    """The kernels' item length L (``csrc/idg_plan.cuh``): the larger of
+    ``ITEM_FLOOR·S`` (an item's extra sandwich, 16·S³, stays within 1/16 of
+    its records' 8·S² each) and half a resident block's even share of the
+    ``n_records`` records (the records' row length), rounded up to whole
+    chunks."""
+    share = -(-n_records // (2 * resident))
+    return max(ITEM_FLOOR * S, -(-share // ITEM_ALIGN) * ITEM_ALIGN)
+
+
+def extra_items(n_records: int, S: int) -> int:
+    """A bound on the items beyond one a run, whatever the device: a split
+    run of m > L records adds ``⌈m/L⌉ − 1 < m/L``, and ``L ≥
+    ITEM_FLOOR·S``.  The kernels' scratch holds this many."""
+    return n_records // (ITEM_FLOOR * S) + 1
+
+
+def run_items(starts, ends, n_records: int, resident: int, S: int):
+    """Plain version of the kernels' work items: ``(run, start, end)``
+    int32 ``[k]``, item j of run r holding the records ``[starts[r] + j·L,
+    min(starts[r] + (j + 1)·L, ends[r]))`` with ``L =``
+    :func:`item_length` ``(n_records, resident, S)``, in table order.  A
+    run of at most L records is one item, an empty entry none; so every
+    record of a run lies in exactly one item, and no item is longer than
+    L.  Gridding is linear, so gridding the items (each with its run's
+    origin, pair and screens) gives the runs' grid; degridding reads each
+    record against its run's image, so the items predict the runs'
+    visibilities."""
+    L = item_length(n_records, resident, S)
+    st = starts.long()
+    m = torch.clamp(ends.long() - st, min=0)
+    k = (m + L - 1) // L
+    run = torch.repeat_interleave(torch.arange(k.numel(), device=st.device),
+                                  k)
+    piece = torch.arange(run.numel(), device=st.device) - (
+        torch.cumsum(k, 0) - k)[run]
+    first = st[run] + piece * L
+    last = torch.minimum(first + L, ends.long()[run])
+    return run.int(), first.int(), last.int()
+
+
+def split_counts(run) -> tuple[int, int]:
+    """``(runs split, items made from them)`` of :func:`run_items`' runs:
+    what the kernels count as ``split/<kernel>/runs`` and ``.../items``."""
+    per_run = torch.bincount(run.long())
+    split = per_run[per_run > 1]
+    return int(split.numel()), int(split.sum())
 
 
 @contextlib.contextmanager
@@ -364,15 +419,39 @@ def _phase_scalars(S: int, theta: float, N: int, Nx: int):
             float(theta * Nx / N / S))
 
 
+def resident_blocks(kernel: str, S: int) -> int:
+    """The blocks of ``kernel``'s (:data:`GRID_KERNEL` or
+    :data:`DEGRID_KERNEL`) subgrid-S instance that the current CUDA device
+    holds at once: the ``resident`` of :func:`item_length` in its
+    launches."""
+    lib = {GRID_KERNEL: "idg_grid", DEGRID_KERNEL: "idg_degrid"}[kernel]
+    fn, err = bind(lib, f"{lib}_resident", [ctypes.c_int])
+    n = fn(S)
+    if n <= 0:
+        raise RuntimeError(f"{lib}_resident: {err(-n).decode()} ({-n})")
+    return n
+
+
+def _count_split(counts, name: str) -> None:
+    """Count a launch's split runs and their items (``counts`` ``[2]`` on
+    the card) as ``split/<name>/runs`` and ``split/<name>/items``, and as
+    the root span's ``idg_split_runs`` and ``idg_items``, once the card
+    has them."""
+    count_on_card(counts, (f"split/{name}/runs", f"split/{name}/items"),
+                  ("idg_split_runs", "idg_items"))
+
+
 def _grid_from_records_cuda(recs, starts, ends, y0, x0, ia1, ia2, screens,
                             *, grid_shape, theta: float, subgrid: int,
                             taper_beta: float):
     """Launch ``csrc/idg_grid.cu`` on the current stream; returns the padded
-    grid and a 0-dim int32 tensor, nonzero if a run was skipped because its
-    patch would leave the grid (read it back to check; the prep never makes
-    such a run).  The launch first sorts the run table into the order its
-    blocks take the runs by, in a scratch buffer of the table's length and
-    two counters.  Raises on bad inputs and on a refused launch."""
+    grid and a 0-dim int32 tensor, nonzero if an item was skipped because
+    its patch would leave the grid (read it back to check; the prep never
+    makes such a run).  The launch first sorts the run table's work items
+    (:func:`run_items`) into the order its blocks take them by, in a
+    scratch buffer of 8 counters, the order, the split runs' pieces and
+    the split runs.
+    Raises on bad inputs and on a refused launch."""
     S = subgrid
     N, Nx = grid_shape
     HP, WP = N + 2 * S, Nx + 2 * S
@@ -382,27 +461,33 @@ def _grid_from_records_cuda(recs, starts, ends, y0, x0, ia1, ia2, screens,
     check_subgrid(S)
     runs = (starts, ends, y0, x0, ia1, ia2)
     _check_cuda_inputs(recs, runs, screens, S)
+    n_runs = starts.shape[0]
+    if n_runs == 0:
+        launched(GRID_KERNEL)
+        return out, torch.zeros((), dtype=torch.int32, device=dev)
     planes = _dft_planes(S, taper_beta, dev)
     scr = _padded_screens(screens, S)
-    order = torch.empty((starts.shape[0] + 2,), dtype=torch.int32,
-                        device=dev)
+    extra = extra_items(recs.shape[1], S)
+    scratch = torch.empty((8 + n_runs + 4 * extra,), dtype=torch.int32,
+                          device=dev)
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn, err = bind("idg_grid", "idg_grid_stream",
-                    [vp, ctypes.c_longlong, vp, vp, vp, vp, vp, vp, vp, ci,
-                     vp, ci, vp, vp, ci, ci, ci, cf, cf, cf, vp])
+                    [vp, ctypes.c_longlong, vp, ci, vp, vp, vp, vp, vp, vp,
+                     ci, vp, ci, vp, vp, ci, ci, ci, cf, cf, cf, vp])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(recs.data_ptr(), recs.shape[1], order.data_ptr(),
+        rc = fn(recs.data_ptr(), recs.shape[1], scratch.data_ptr(), extra,
                 starts.data_ptr(), ends.data_ptr(), y0.data_ptr(),
-                x0.data_ptr(), ia1.data_ptr(), ia2.data_ptr(),
-                starts.shape[0], scr.data_ptr(), scr.shape[0],
-                planes.data_ptr(), out.data_ptr(), HP, WP, S,
+                x0.data_ptr(), ia1.data_ptr(), ia2.data_ptr(), n_runs,
+                scr.data_ptr(), scr.shape[0], planes.data_ptr(),
+                out.data_ptr(), HP, WP, S,
                 *_phase_scalars(S, theta, N, Nx), stream)
-    if rc != 0:
-        raise RuntimeError(f"{GRID_KERNEL} launch failed: "
-                           f"{err(rc).decode()} ({rc})")
+        if rc != 0:
+            raise RuntimeError(f"{GRID_KERNEL} launch failed: "
+                               f"{err(rc).decode()} ({rc})")
+        _count_split(scratch[3:5], "idg_grid")
     launched(GRID_KERNEL)
-    return out, order[-1]
+    return out, scratch[1]
 
 
 def _degrid_from_records_cuda(recs, starts, ends, y0, x0, ia1, ia2, order_s,
@@ -428,22 +513,30 @@ def _degrid_from_records_cuda(recs, starts, ends, y0, x0, ia1, ia2, order_s,
                          "the records' device")
     dev = recs.device
     out = torch.zeros((n,), dtype=torch.complex64, device=dev)
+    n_runs = starts.shape[0]
+    if n_runs == 0:
+        launched(DEGRID_KERNEL)
+        return out
     planes = _dft_planes_adjoint(S, taper_beta, dev)
     scr = _padded_screens(screens, S)
+    extra = extra_items(n, S)
+    scratch = torch.empty((4 + 2 * extra,), dtype=torch.int32, device=dev)
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn, err = bind("idg_degrid", "idg_degrid_stream",
-                    [vp, ctypes.c_longlong, vp, vp, vp, vp, vp, vp, ci, vp,
-                     vp, ci, vp, vp, ci, ci, ci, cf, cf, cf, vp, vp])
+                    [vp, ctypes.c_longlong, vp, ci, vp, vp, vp, vp, vp, vp,
+                     ci, vp, vp, ci, vp, vp, ci, ci, ci, cf, cf, cf, vp, vp])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(recs.data_ptr(), n, starts.data_ptr(), ends.data_ptr(),
-                y0.data_ptr(), x0.data_ptr(), ia1.data_ptr(), ia2.data_ptr(),
-                starts.shape[0], order_s.data_ptr(), scr.data_ptr(),
-                scr.shape[0], planes.data_ptr(), grid.data_ptr(), N, Nx,
-                S, *_phase_scalars(S, theta, N, Nx), out.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"{DEGRID_KERNEL} launch failed: "
-                           f"{err(rc).decode()} ({rc})")
+        rc = fn(recs.data_ptr(), n, scratch.data_ptr(), extra,
+                starts.data_ptr(), ends.data_ptr(), y0.data_ptr(),
+                x0.data_ptr(), ia1.data_ptr(), ia2.data_ptr(), n_runs,
+                order_s.data_ptr(), scr.data_ptr(), scr.shape[0],
+                planes.data_ptr(), grid.data_ptr(), N, Nx, S,
+                *_phase_scalars(S, theta, N, Nx), out.data_ptr(), stream)
+        if rc != 0:
+            raise RuntimeError(f"{DEGRID_KERNEL} launch failed: "
+                               f"{err(rc).decode()} ({rc})")
+        _count_split(scratch[1:3], "idg_degrid")
     launched(DEGRID_KERNEL)
     return out
 

@@ -27,8 +27,12 @@ range that launches device work gets a device-side copy in the trace.
 children's counts.  Spans are opened and closed by one thread.
 
 Counters: :data:`COUNTERS` holds the process's counts that outlive a
-span (``launches/<kernel>``, ``dropped/<gridder>``); :class:`PhaseTimer`
-keeps its run's counts in a :class:`Counters` of its own.
+span (``launches/<kernel>``, ``dropped/<gridder>``, ``split/<kernel>/…``);
+:class:`PhaseTimer` keeps its run's counts in a :class:`Counters` of its
+own.  A count a kernel makes on the card (:func:`count_on_card`) is copied
+to page-locked memory behind the kernel and taken into :data:`COUNTERS`,
+and into the open root span, by the next :func:`readback` after the copy
+has landed, so that reading it adds no wait of its own.
 """
 
 from __future__ import annotations
@@ -119,12 +123,15 @@ def clear_spans() -> None:
 def readback(value, convert):
     """``convert(value)``, where ``value`` is a tensor on the entry's
     device that the host reads (``int``, ``float``, ``bool``), logged as
-    span ``sdp.readback``.  A value that is no tensor is converted
-    without it."""
+    span ``sdp.readback``; then the card's counts that have landed
+    (:func:`settle_counts`).  A value that is no tensor is converted
+    without either."""
     if not isinstance(value, torch.Tensor):
         return convert(value)
     with span("sdp.readback"):
-        return convert(value)
+        out = convert(value)
+    settle_counts()
+    return out
 
 
 class Counters(dict):
@@ -144,6 +151,34 @@ class Counters(dict):
 
 
 COUNTERS = Counters()
+_ON_CARD: collections.deque = collections.deque()   # the counts in flight
+
+
+def count_on_card(counts: torch.Tensor, keys, span_keys) -> None:
+    """Count the int tensor ``counts`` ``[k]`` that work on the current
+    CUDA stream makes: ``counts[i]`` is added to ``COUNTERS[keys[i]]``,
+    and to count ``span_keys[i]`` of the root span open then, by the first
+    :func:`settle_counts` after the work is done.  Only the copy to
+    page-locked memory is queued here; nothing waits."""
+    settle_counts()
+    host = torch.empty(counts.shape, dtype=counts.dtype, pin_memory=True)
+    host.copy_(counts, non_blocking=True)
+    landed = torch.cuda.Event()
+    landed.record()
+    root = _OPEN[0] if _OPEN else None
+    _ON_CARD.append((host, landed, keys, span_keys, root))
+
+
+def settle_counts() -> None:
+    """Take the card counts whose copies have landed into
+    :data:`COUNTERS` and their root spans, in the order they were queued;
+    never waits for the card."""
+    while _ON_CARD and _ON_CARD[0][1].query():
+        host, _, keys, span_keys, root = _ON_CARD.popleft()
+        for key, skey, n in zip(keys, span_keys, host.tolist()):
+            COUNTERS.add(key, n)
+            if root is not None:
+                root.counts[skey] = root.counts.get(skey, 0) + n
 
 
 def launched(kernel: str) -> None:

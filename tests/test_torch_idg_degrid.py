@@ -27,12 +27,14 @@ from ska_sdp_tpu_torch import kernels
 from ska_sdp_tpu_torch.kernels import idg_aw_stream
 from ska_sdp_tpu_torch.kernels.idg_aw_records import (
     idg_aw_degrid_records, idg_aw_run_records)
+from ska_sdp_tpu_torch.ops.idg_aw import PAIR_SHIFT
+from ska_sdp_tpu_torch.utils import timing
 from torch_jax_records import from_jax_degrid_records
 
-from test_torch_idg_grid import (SPLIT_SUBGRIDS, SPLIT_TOL, _complex3,
-                                 _crop_padded, _exponent, _factor64, _pad,
-                                 _screens, _split_c, random_problem,
-                                 track_problem)
+from test_torch_idg_grid import (RESIDENT, SPLIT_SUBGRIDS, SPLIT_TOL,
+                                 _complex3, _crop_padded, _exponent,
+                                 _factor64, _pad, _screens, _split_c,
+                                 random_problem, track_problem)
 
 torch.set_num_threads(2)
 
@@ -456,15 +458,22 @@ class TestSplitF16DegridNumerics:
             assert float(err) <= 2.0 ** -21 * float(part.abs().max())
 
 
-def _long_run_records(S, seed, device):
-    """A run table with one run of 25,000 records among 500 short ones,
+def _long_run_records(S, seed, device, long=25000):
+    """A run table with one run of ``long`` records among 500 short ones,
     empty and sentinel entries, on a 256² grid: ``(recs, starts_ext, y0,
     x0, ia1, ia2, order_s)`` as ``idg_aw_degrid_records`` gives them."""
     rng = np.random.default_rng(seed)
     lengths = rng.integers(1, 40, 501)
     lengths[rng.random(501) < 0.2] = 0
-    lengths[0] = 25000
+    lengths[0] = long
     rng.shuffle(lengths)
+    return _degrid_table(S, lengths, rng, device)
+
+
+def _degrid_table(S, lengths, rng, device):
+    """Runs of the given lengths over random records, a tenth of them
+    sentinel runs, on a 256² grid, as ``idg_aw_degrid_records`` gives
+    them."""
     n, R, d = int(lengths.sum()), lengths.shape[0], S / 2 - 8
     recs = np.stack([rng.uniform(-d, d, n), rng.uniform(-d, d, n),
                      rng.uniform(-250.0, 250.0, n)]).astype(np.float32)
@@ -475,6 +484,55 @@ def _long_run_records(S, seed, device):
     x0 = rng.integers(0, N + S, R).astype(np.int32)
     order = rng.permutation(n).astype(np.int32)
     return _t(recs, ext, y0, x0, ia[0], ia[1], order, device=device)
+
+
+def _crowded_records(S, seed, device):
+    """:func:`_long_run_records` with one tile of 60,000 records, which
+    is no sentinel run."""
+    recs = _long_run_records(S, seed, device, long=60_000)
+    ext = recs[1]
+    recs[4][torch.argmax(ext[1:] - ext[:-1])] = 1
+    return recs
+
+
+def _degrid_items(recs, starts_ext, y0, x0, ia1, ia2, order_s, resident,
+                  S):
+    """The records of :func:`_long_run_records` as the kernels' work items
+    (``run_items``): ``(items' arguments, run_items' runs)``.  The items
+    tile the record stream as the runs do, so their starts close with the
+    runs' last end."""
+    n = recs.shape[1]
+    ends = torch.clamp(starts_ext[1:], max=n)
+    run, first, _ = idg_aw_stream.run_items(starts_ext[:-1], ends, n,
+                                            resident, S)
+    r = run.long()
+    ext = torch.cat([first, starts_ext[-1:]])
+    return (recs, ext, y0[r], x0[r], ia1[r], ia2[r], order_s), run
+
+
+def _split_in_degrid(run, ia1):
+    """``split_counts`` of the degridder's items: sentinel runs predict 0,
+    so their items are not counted."""
+    return idg_aw_stream.split_counts(run[ia1[run.long()] < PAIR_SHIFT])
+
+
+class TestDegridWorkItems:
+    def test_plain_degridder_over_items_is_bitwise(self):
+        # each record reads its run's image whichever item holds it
+        S = 32
+        recs = _crowded_records(S, 130, "cpu")
+        rng = np.random.default_rng(130)
+        scr = torch.as_tensor(_screens(rng, 6, S))
+        grid = torch.as_tensor(_random_grid(rng, (N, N)))
+        items, run = _degrid_items(*recs, RESIDENT, S)
+        assert _split_in_degrid(run, recs[4])[0] == 1
+        kw = dict(theta=THETA, subgrid=S)
+        by_runs = idg_aw_stream.degrid_from_records_plain(*recs, grid, scr,
+                                                          **kw)
+        by_items = idg_aw_stream.degrid_from_records_plain(*items, grid, scr,
+                                                           **kw)
+        assert torch.equal(by_items, by_runs)
+        assert int((by_runs != 0).sum()) > 60_000
 
 
 @pytest.mark.cuda
@@ -538,3 +596,50 @@ class TestCudaKernel:
         got, plain = got.cpu().numpy(), plain.cpu().numpy()
         assert _rel(got, plain) < TOL
         np.testing.assert_array_equal(got[plain == 0], 0)
+
+    def test_crowded_tile_is_split(self, cuda_device):
+        """One tile of 60,000 records among 500 short runs: its items each
+        predict their own records, bitwise alike from call to call, and
+        are counted as the plain items count."""
+        S = 64
+        recs = _crowded_records(S, 140, cuda_device)
+        rng = np.random.default_rng(140)
+        scr = torch.as_tensor(_screens(rng, 6, S), device=cuda_device)
+        grid = torch.as_tensor(_random_grid(rng, (N, N)), device=cuda_device)
+        resident = idg_aw_stream.resident_blocks(
+            idg_aw_stream.DEGRID_KERNEL, S)
+        _, run = _degrid_items(*recs, resident, S)
+        timing.COUNTERS.reset("split/")
+        got = [idg_aw_stream.idg_aw_degrid_from_records_stream(
+            *recs, grid, scr, theta=THETA, subgrid=S) for _ in range(2)]
+        plain = idg_aw_stream.degrid_from_records_plain(
+            *recs, grid, scr, theta=THETA, subgrid=S)
+        torch.cuda.synchronize()
+        timing.settle_counts()
+        assert torch.equal(got[0], got[1])
+        got, plain = got[0].cpu().numpy(), plain.cpu().numpy()
+        assert _rel(got, plain) < TOL
+        np.testing.assert_array_equal(got[plain == 0], 0)
+        runs, items = _split_in_degrid(run, recs[4])
+        assert runs == 1 and items > 1
+        assert timing.COUNTERS.group("split/idg_degrid/") == {
+            "runs": 2 * runs, "items": 2 * items}
+
+    def test_runs_of_eight_are_not_split(self, cuda_device):
+        # IDG-AW's runs: one baseline's 8 dumps in one tile
+        rng = np.random.default_rng(141)
+        lengths = np.full(4000, 8)
+        lengths[::5] = 0
+        recs = _degrid_table(SA, lengths, rng, cuda_device)
+        scr = torch.as_tensor(_screens(rng, 6), device=cuda_device)
+        grid = torch.as_tensor(_random_grid(rng, (N, N)), device=cuda_device)
+        timing.COUNTERS.reset("split/")
+        got = idg_aw_stream.idg_aw_degrid_from_records_stream(
+            *recs, grid, scr, theta=THETA, subgrid=SA)
+        plain = idg_aw_stream.degrid_from_records_plain(
+            *recs, grid, scr, theta=THETA, subgrid=SA)
+        torch.cuda.synchronize()
+        timing.settle_counts()
+        assert _rel(got.cpu().numpy(), plain.cpu().numpy()) < TOL
+        assert timing.COUNTERS.group("split/idg_degrid/") == {
+            "runs": 0, "items": 0}

@@ -27,6 +27,7 @@ from ska_sdp_tpu_torch.kernels import idg_aw_stream
 from ska_sdp_tpu_torch.kernels.idg_aw_records import idg_aw_run_records
 from ska_sdp_tpu_torch.ops.idg import _dft_matrix, kaiser_taper
 from ska_sdp_tpu_torch.ops.idg_aw import PAIR_SHIFT, SENTINEL, aw_screens_host
+from ska_sdp_tpu_torch.utils import timing
 from torch_jax_records import from_jax_run_records
 
 torch.set_num_threads(2)
@@ -478,6 +479,124 @@ class TestRunOrder:
             occupied[n_occ:].any())
 
 
+RESIDENT = 264          # an H100's resident gridder blocks at S = 64
+
+
+def _crowded_lengths(seed, long=60_000, short=500):
+    """One tile of ``long`` records among ``short`` runs of 1 to 39, with
+    empty entries among them, as the SKA1-Low core crowds a snapshot."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(1, 40, short + 1)
+    lengths[rng.random(short + 1) < 0.2] = 0
+    lengths[0] = long
+    rng.shuffle(lengths)
+    return lengths
+
+
+def _grid64(recs, starts, ends, y0, x0, ia1, ia2, screens, S):
+    """The gridding operator in float64, run by run: the padded grid."""
+    F = idg_aw_stream._dft_factor64(S, 12.0)
+    cq = torch.arange(S, dtype=torch.float64) - S // 2
+    k = math.pi * (cq * THETA / S) ** 2
+    A = screens.to(torch.complex128)
+    a1 = torch.clamp(ia1.long(), 0, A.shape[0] - 1)   # as the kernels clamp
+    a2 = torch.clamp(ia2.long(), 0, A.shape[0] - 1)
+    out = torch.zeros((N + 2 * S, N + 2 * S), dtype=torch.complex128)
+    for i in torch.nonzero(ends > starts).flatten().tolist():
+        dy, dx, w, vr, vi = recs[:, int(starts[i]):int(ends[i])].double()
+        ey, ex = (torch.polar(torch.ones_like(ph), ph) for ph in (
+            2 * math.pi / S * cq * d[:, None] - k * w[:, None]
+            for d in (dy, dx)))
+        a = (torch.complex(vr, vi)[:, None] * ey).T @ ex
+        t = a * torch.conj(A[a1[i]] * A[a2[i]])
+        out[int(y0[i]):int(y0[i]) + S, int(x0[i]):int(x0[i]) + S] += (
+            F @ t @ F.T)
+    return out.numpy()
+
+
+class TestWorkItems:
+    """The kernels' work items (``run_items``): a run of more than L
+    records is split into items of L; the items tile every run."""
+
+    @staticmethod
+    def _table(lengths):
+        ext = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32)
+        return torch.as_tensor(ext[:-1]), torch.as_tensor(ext[1:])
+
+    @pytest.mark.parametrize("S", [32, 64])
+    def test_items_tile_the_runs(self, S):
+        lengths = _crowded_lengths(3)
+        starts, ends = self._table(lengths)
+        n = int(lengths.sum())
+        L = idg_aw_stream.item_length(n, RESIDENT, S)
+        assert L == 32 * S and L % 32 == 0
+        run, first, last = idg_aw_stream.run_items(starts, ends, n,
+                                                   RESIDENT, S)
+        assert bool((last > first).all()) and int((last - first).max()) <= L
+        # every record in exactly one item, of its own run
+        owner = torch.full((n,), -1, dtype=torch.int64)
+        hits = torch.zeros(n, dtype=torch.int64)
+        for r, a, b in zip(run.tolist(), first.tolist(), last.tolist()):
+            owner[a:b] = r
+            hits[a:b] += 1
+        assert bool((hits == 1).all())
+        want = torch.repeat_interleave(torch.arange(len(lengths)),
+                                       torch.as_tensor(lengths))
+        assert torch.equal(owner, want)
+        # only the long run is split, into ⌈60,000 / L⌉ items
+        assert idg_aw_stream.split_counts(run) == (1, -(-60_000 // L))
+        per_run = torch.bincount(run.long(), minlength=len(lengths))
+        assert torch.equal(per_run[torch.as_tensor(lengths) <= L],
+                           (torch.as_tensor(lengths)[
+                               torch.as_tensor(lengths) <= L] > 0).long())
+        assert idg_aw_stream.extra_items(n, S) >= run.numel() - int(
+            (torch.as_tensor(lengths) > 0).sum())
+
+    def test_runs_of_eight_are_never_split(self):
+        # IDG-AW's runs: one baseline's 8 dumps in one tile
+        lengths = np.full(20_000, 8)
+        lengths[::7] = 0
+        starts, ends = self._table(lengths)
+        run, first, last = idg_aw_stream.run_items(
+            starts, ends, int(lengths.sum()), RESIDENT, 64)
+        occupied = torch.nonzero(torch.as_tensor(lengths) > 0).flatten()
+        assert torch.equal(run.long(), occupied)
+        assert torch.equal(first, starts[occupied])
+        assert torch.equal(last, ends[occupied])
+        assert idg_aw_stream.split_counts(run) == (0, 0)
+
+    def test_item_length_follows_the_even_share(self):
+        # above the floor, half a resident block's share in whole chunks
+        assert idg_aw_stream.item_length(10**7, RESIDENT, 64) == 18_944
+        assert idg_aw_stream.item_length(1_046_528, RESIDENT, 64) == 2048
+        assert idg_aw_stream.item_length(5, 1, 2) == 64
+
+    def test_plain_gridder_over_items(self):
+        # the items' patches add up to the runs' grid.  The plain runs
+        # version sums the 60,000-record tile in one float32 chain, ~4e-6
+        # from the operator in float64; the items sum 1,024 at a time and
+        # come within 1e-6 of it
+        S = 32
+        lengths = _crowded_lengths(4)
+        recs, starts, ends, y0, x0, ia1, ia2 = (
+            torch.as_tensor(x) for x in _hand_table(S, lengths, 4, 4))
+        scr = torch.as_tensor(_screens(np.random.default_rng(4), 4, S))
+        run, first, last = idg_aw_stream.run_items(
+            starts, ends, recs.shape[1], RESIDENT, S)
+        assert idg_aw_stream.split_counts(run)[0] == 1
+        r = run.long()
+        kw = dict(grid_shape=(N, N), theta=THETA, subgrid=S)
+        g_runs = idg_aw_stream.grid_from_records_plain(
+            recs, starts, ends, y0, x0, ia1, ia2, scr, **kw).numpy()
+        g_items = idg_aw_stream.grid_from_records_plain(
+            recs, first, last, y0[r], x0[r], ia1[r], ia2[r], scr,
+            **kw).numpy()
+        g64 = _grid64(recs, starts, ends, y0, x0, ia1, ia2, scr, S)
+        assert _rel(g_items, g64) < 1e-6
+        assert _rel(g_runs, g64) < 1e-5
+        assert _rel(g_items, g_runs) < 1e-5
+
+
 class TestDispatch:
     @pytest.mark.parametrize("S,support", [(64, 15), (128, 15), (32, 7),
                                            (32, 15), (48, 15)])
@@ -636,6 +755,33 @@ class TestCudaTensorCoreKernel:
         lengths[rng.random(3000) < 0.3] = 0
         self._check(cuda_device, _hand_table(64, lengths, 2, 63,
                                              trailing=500), 64, 2, 63)
+
+    def test_crowded_tile_is_split(self, cuda_device):
+        # one tile of 60,000 records among 500 short runs: its items are
+        # gridded apart and added, and counted as the plain items count
+        S = 64
+        table = _hand_table(S, _crowded_lengths(5), 4, 65)
+        t = [torch.as_tensor(x, device=cuda_device) for x in table]
+        resident = idg_aw_stream.resident_blocks(idg_aw_stream.GRID_KERNEL,
+                                                 S)
+        run, _, _ = idg_aw_stream.run_items(t[1], t[2], t[0].shape[1],
+                                            resident, S)
+        timing.COUNTERS.reset("split/")
+        self._check(cuda_device, table, S, 4, 65)
+        timing.settle_counts()
+        runs, items = idg_aw_stream.split_counts(run)
+        assert runs == 1 and items > 1
+        assert timing.COUNTERS.group("split/idg_grid/") == {
+            "runs": runs, "items": items}
+
+    def test_runs_of_eight_are_not_split(self, cuda_device):
+        lengths = np.full(4000, 8)
+        lengths[::5] = 0
+        timing.COUNTERS.reset("split/")
+        self._check(cuda_device, _hand_table(64, lengths, 4, 66), 64, 4, 66)
+        timing.settle_counts()
+        assert timing.COUNTERS.group("split/idg_grid/") == {
+            "runs": 0, "items": 0}
 
     def test_sentinel_and_empty_entries(self, cuda_device):
         rng = np.random.default_rng(62)
