@@ -864,22 +864,33 @@ def w_image_streamed(readers: dict, n: int, frequency: float, wkerns, wbins,
 
 def psf_image(vis_data: VisData, mode: str, *, theta: float = 0.008,
               lam: int = 300000, n: Optional[int] = None,
-              wstep: float = 2000.0, precision: str = "single",
-              device="cuda") -> ImagingResult:
+              wstep: float = 2000.0, w_range: Optional[tuple] = None,
+              precision: str = "single", device="cuda") -> ImagingResult:
     """PSF-normalised dirty image of in-memory visibilities on ``device``
     through ``mode``'s imaging function (``models.imaging.mode_imgfn``:
-    ``simple``, ``conv`` or ``wcache`` with bin width ``wstep``) and
-    ``do_imaging``.  ``conv`` and ``wcache`` grid through the bank scatter
-    (the CUDA kernel on ``"cuda"``, its plain version on ``"cpu"``);
-    ``simple`` runs no hand-written kernel.  ``n`` caps the record
-    count."""
+    ``simple``, ``conv`` or ``wcache`` with bin width ``wstep`` and, where
+    given, the fixed w range ``w_range`` ``(minw, maxw)``, which the other
+    modes refuse with a ``ValueError``) and ``do_imaging``.  ``conv`` and
+    ``wcache`` grid through the bank scatter (the CUDA kernel on
+    ``"cuda"``, its plain version on ``"cpu"``); ``simple`` runs no
+    hand-written kernel.  ``n`` caps the record count.  The root span's
+    ``wkernel_planes`` and ``wkernel_bytes`` count the w-kernel planes
+    synthesised in the call (``wcache`` builds its bank twice: for the
+    image and for the PSF) and the bytes of their zero-padded stacks."""
     prec = _precision(precision)
-    uvw, f = _uvw_freq(vis_data, n, prec, device)
-    m = uvw.shape[0]
-    uvw0 = uvw_lambda(f, uvw)
-    vis = hostmem.to_device(vis_data.vis[:m], device,
-                            np_dtype=prec.np_complex)
-    a1, a2 = (hostmem.to_device(a, device) for a in ant_ids(vis_data, m))
-    t = hostmem.to_device(vis_data.time[:m], device, np_dtype=prec.np_real)
-    return do_imaging(theta, lam, uvw0, a1, a2, t, vis_data.frequency, vis,
-                      mode_imgfn(mode, theta, uvw0, wstep))
+    with _entry("psf_image", vis_data, n, wkernel_planes=0,
+                wkernel_bytes=0):
+        with span("sdp.host_prep"):
+            uvw, f = _uvw_freq(vis_data, n, prec, device)
+            m = uvw.shape[0]
+            vis = hostmem.to_device(vis_data.vis[:m], device,
+                                    np_dtype=prec.np_complex)
+            a1, a2 = (hostmem.to_device(a, device)
+                      for a in ant_ids(vis_data, m))
+            t = hostmem.to_device(vis_data.time[:m], device,
+                                  np_dtype=prec.np_real)
+        with span("sdp.device_prep"):
+            uvw0 = uvw_lambda(f, uvw)
+        imgfn = mode_imgfn(mode, theta, uvw0, wstep, w_range)
+        return do_imaging(theta, lam, uvw0, a1, a2, t, vis_data.frequency,
+                          vis, imgfn)

@@ -33,7 +33,7 @@ from ..ops import doweight, ifft_centered, make_grid_hermitian, mirror_uvw
 from ..ops.gridding import grid_nearest
 from ..ops.search import find_closest
 from ..ops.wkernel import w_kernel_bank
-from ..utils.timing import span
+from ..utils.timing import add, readback, span
 
 PSF_MODES = ("simple", "conv", "wcache")
 
@@ -65,19 +65,25 @@ def w_cache_bins(uvw: torch.Tensor, wstep: float,
                  w_range: Optional[tuple] = None):
     """The w-cache's bins: ``(centres [steps] float64 numpy, wbin [n]
     int32 on uvw's device)``.  Each w rounds to a multiple of ``wstep`` in
-    uvw's dtype (half to even); the bins span the rounded extent, taken on
-    the host, or ``w_range`` rounded the same way, into whose edge bins
-    the w values outside it are clipped."""
-    roundedw = wstep * torch.round(uvw[:, 2] / wstep)
-    if w_range is not None:
+    uvw's dtype (half to even); the bins span the rounded extent, read
+    back to the host (one ``timing.readback``, between the two
+    ``sdp.device_prep`` spans of the arithmetic), or ``w_range`` rounded
+    the same way, into whose edge bins the w values outside it are clipped
+    (no read of the data)."""
+    with span("sdp.device_prep"):
+        roundedw = wstep * torch.round(uvw[:, 2] / wstep)
+    if w_range is None:
+        minw, maxw = readback(torch.stack(torch.aminmax(roundedw)),
+                              lambda t: t.tolist())
+    else:
         minw = wstep * np.round(float(w_range[0]) / wstep)
         maxw = wstep * np.round(float(w_range[1]) / wstep)
-        roundedw = torch.clamp(roundedw.to(torch.float64), minw, maxw)
-    else:
-        minw, maxw = float(roundedw.min()), float(roundedw.max())
     steps = int((maxw - minw) // wstep) + 1
     centers = minw + wstep * np.arange(steps, dtype=np.float64)
-    wbin = ((roundedw.to(torch.float64) - minw) // wstep).to(torch.int32)
+    with span("sdp.device_prep"):
+        if w_range is not None:
+            roundedw = torch.clamp(roundedw.to(torch.float64), minw, maxw)
+        wbin = ((roundedw.to(torch.float64) - minw) // wstep).to(torch.int32)
     return centers, wbin
 
 
@@ -88,12 +94,20 @@ def w_cache_imaging(theta: float, lam: int, uvw: torch.Tensor, src,
     """w-projection uv-grid with a bank built on the fly: w binned by
     ``opts.wstep`` (:func:`w_cache_bins`), one conjugated kernel per bin
     (``ops.wkernel.w_kernel_bank`` in the visibilities' real precision on
-    their device), and the bank scatter."""
-    centers, wbin = w_cache_bins(uvw, opts.wstep, w_range)
+    their device, built anew on every call), and the bank scatter.  The
+    open spans count the planes synthesised (``wkernel_planes``) and the
+    bytes of their zero-padded stacks (``wkernel_bytes``)."""
     real = vis.real.dtype
-    bank = w_kernel_bank(theta, torch.as_tensor(centers, dtype=real,
-                                                device=vis.device),
-                         opts, dtype=real, device=vis.device)
+    centers, wbin = w_cache_bins(uvw, opts.wstep, w_range)
+    with span("sdp.device_prep"):
+        # the centres made on the card as the host makes them, in float64:
+        # a copy from pageable memory would first wait for the card
+        w = (centers[0] + opts.wstep * torch.arange(
+            len(centers), dtype=torch.float64, device=vis.device)).to(real)
+    bank = w_kernel_bank(theta, w, opts, dtype=real, device=vis.device)
+    add("wkernel_planes", len(centers))
+    add("wkernel_bytes", len(centers) * (opts.npix_ff * opts.qpx) ** 2
+        * bank.element_size())
     n = int(round(theta * lam))
     return wproj_gridder(bank, (n, n), uvw / lam, wbin, vis, chunk=chunk)
 
@@ -135,16 +149,21 @@ aw_imaging_old = aw_imaging
 
 
 def mode_imgfn(mode: str, theta: float, uvw: torch.Tensor,
-                 wstep: float = 2000.0):
+               wstep: float = 2000.0, w_range: Optional[tuple] = None):
     """The reference CLI's imaging function of ``--mode simple``, ``conv``
     or ``wcache`` for uvw ``[n, 3]`` in wavelengths: ``conv`` binds the
     conjugated default-options kernel at the mean |w| (built on uvw's
-    device in its precision), ``wcache`` the bin width ``wstep``."""
+    device in its precision), ``wcache`` the bin width ``wstep`` and the
+    w range ``w_range`` (:func:`w_cache_bins`; None takes the data's
+    extent), which the other modes refuse."""
+    if w_range is not None and mode != "wcache":
+        raise ValueError(f"w_range applies to mode 'wcache', not {mode!r}")
     if mode == "simple":
         return simple_imaging
     if mode == "wcache":
         return functools.partial(w_cache_imaging,
-                                 opts=KernelOptions(wstep=wstep))
+                                 opts=KernelOptions(wstep=wstep),
+                                 w_range=w_range)
     if mode == "conv":
         w_mid = torch.abs(uvw[:, 2]).mean().reshape(1)
         kv = w_kernel_bank(theta, w_mid, KernelOptions(), dtype=uvw.dtype,
@@ -167,17 +186,23 @@ def do_imaging(theta: float, lam: int, uvw: torch.Tensor, a1, a2, t,
     weighted visibilities and the PSF grid of the weights through
     ``imgfn``, Hermitian completion, centred inverse FFT and real part of
     each, both divided by the PSF peak.  ``uvw`` ``[n, 3]`` is in
-    wavelengths; ``src = (a1, a2, t, f)`` goes to ``imgfn`` unmirrored."""
-    n = vis.shape[0]
-    src = (a1, a2, t, torch.full((n,), f, dtype=uvw.dtype,
-                                 device=uvw.device))
-    uvw1, vis1 = mirror_uvw(uvw, vis)
-    wt = doweight(theta, lam, uvw1, torch.ones_like(vis))
+    wavelengths; ``src = (a1, a2, t, f)`` goes to ``imgfn`` unmirrored.
+    The mirror and the weights run in span ``sdp.device_prep``, each
+    grid's completion and transform (and the PSF's, the division by the
+    peak) in span ``sdp.finish``."""
+    with span("sdp.device_prep"):
+        n = vis.shape[0]
+        src = (a1, a2, t, torch.full((n,), f, dtype=uvw.dtype,
+                                     device=uvw.device))
+        uvw1, vis1 = mirror_uvw(uvw, vis)
+        wt = doweight(theta, lam, uvw1, torch.ones_like(vis))
+        wvis = wt * vis1
 
-    cdrt = imgfn(theta, lam, uvw1, src, wt * vis1)
-    drt = ifft_centered(make_grid_hermitian(cdrt)).real
+    cdrt = imgfn(theta, lam, uvw1, src, wvis)
+    with span("sdp.finish"):
+        drt = ifft_centered(make_grid_hermitian(cdrt)).real
     cpsf = imgfn(theta, lam, uvw1, src, wt)
-    psf = ifft_centered(make_grid_hermitian(cpsf)).real
-
-    pmax = torch.max(psf)
-    return ImagingResult(image=drt / pmax, psf=psf / pmax, pmax=pmax)
+    with span("sdp.finish"):
+        psf = ifft_centered(make_grid_hermitian(cpsf)).real
+        pmax = torch.max(psf)
+        return ImagingResult(image=drt / pmax, psf=psf / pmax, pmax=pmax)

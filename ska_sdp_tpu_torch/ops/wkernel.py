@@ -6,7 +6,8 @@
   ``w_kernel_function``   far-field screen e^{2πi·w·(1 − √(1 − l² − m²))}
   ``extract_oversampled`` the qpx×qpx oversampled taps, × qpx²
   ``w_kernel``            screen → zero-pad ×qpx → centred iFFT → taps
-  ``w_kernel_bank``       the conjugated bank the gridder applies directly
+  ``w_kernel_bank``       the conjugated bank the gridder applies directly,
+                          in span ``sdp.wkernel``
 
 Everything is batched over a vector of w values on the leading axis, so a
 whole bank is one batched call on whatever device ``device`` names.
@@ -19,6 +20,7 @@ import math
 import torch
 
 from ..config import KernelOptions
+from ..utils.timing import span
 from .fourier import ifft_centered, pad_mid
 
 _COMPLEX = {torch.float32: torch.complex64, torch.float64: torch.complex128}
@@ -87,6 +89,8 @@ def w_kernel(theta: float, w, opts: KernelOptions, dtype=torch.float64,
 def w_kernel_bank(theta: float, w_centers, opts: KernelOptions,
                   dtype=torch.float64, device=None) -> torch.Tensor:
     """The conjugated bank ``[nw, qpx, qpx, s, s]`` for the bank gridder
-    (the reference conjugates each plane when it builds the bank)."""
-    return torch.conj(w_kernel(theta, w_centers, opts, dtype=dtype,
-                               device=device)).resolve_conj()
+    (the reference conjugates each plane when it builds the bank), built in
+    span ``sdp.wkernel``."""
+    with span("sdp.wkernel"):
+        return torch.conj(w_kernel(theta, w_centers, opts, dtype=dtype,
+                                   device=device)).resolve_conj()

@@ -1,6 +1,6 @@
 """The program's spans and counters (``utils/timing.py``).
 
-* each of the seven benchmarked in-memory entries logs nothing with no
+* each of the eight benchmarked in-memory entries logs nothing with no
   profiler recording, and under ``torch.profiler`` one root ``sdp.<entry>``
   a call whose children run in the layer order (host prep, device prep,
   kernel, finish, readback), nested inside it;
@@ -10,7 +10,12 @@
   ``sdp.readback`` a read the entry makes of its results; ``aw_image``'s
   root also counts the pair table the card's route builds (``aw_pairs``,
   ``aw_table_bytes``), whose distinct-pair count the host reads once
-  between two device preps;
+  between two device preps; ``psf_image``'s root (mode ``wcache`` with a
+  fixed w range) counts the w-kernel planes synthesised, a bank for the
+  image and another for the PSF, and the bytes of their padded stacks
+  (``wkernel_planes``, ``wkernel_bytes``), and reads nothing back;
+  ``w_cache_bins`` reads the data's extent in one readback, and only
+  without a range;
 * only ``host_only`` spans enter the profiler's timeline;
 * the span facility: counts summed up to the root, a span's own counts
   kept to itself, the log read without clearing, the clock shared with the
@@ -39,6 +44,7 @@ from ska_sdp_tpu_torch.io.synthetic import (SyntheticConfig, akern_stamps,
                                             w_plane_centers)
 from ska_sdp_tpu_torch.kernels import _build
 from ska_sdp_tpu_torch.models import dataset as ds
+from ska_sdp_tpu_torch.models import imaging
 from ska_sdp_tpu_torch.ops.wkernel import w_kernel
 from ska_sdp_tpu_torch.utils import hostmem, timing
 
@@ -47,6 +53,10 @@ torch.set_num_threads(2)
 THETA, LAM, N = 0.05, 5120, 256
 CFG = SyntheticConfig(theta=THETA, lam=LAM, nant=6, ntime=4, nw_planes=4,
                       qpx=2, npix_ff=32, npix_kern=7)
+# psf_image: w-cache bins of 2000 wavelengths over [0, 2000], 2 planes of
+# the default kernel shape (a 256² far field padded to 2048²)
+PSF_KW = dict(wstep=2000.0, w_range=(0.0, 2000.0))
+PSF_PLANES = 2
 HOST_ONLY = {"sdp.host_prep.cast", "sdp.host_prep.layout",
              "sdp.host_prep.register"}
 # the direct children of each entry's root, in the order they start
@@ -72,6 +82,13 @@ CHILDREN = {
     # weights and mirroring, then the w-planes; the CPU's plain scatter
     "aw_image": ["sdp.host_prep", "sdp.device_prep", "sdp.device_prep",
                  "sdp.kernel.aw_grid", "sdp.finish", "sdp.readback"],
+    # uvw to wavelengths; mirroring and weights; then for the image and
+    # again for the PSF: the bins (rounded, then clipped to the range and
+    # counted), the plane centres, the bank's synthesis, the scatter and
+    # the finish (the PSF's divides both by its peak)
+    "psf_image": ["sdp.host_prep", "sdp.device_prep", "sdp.device_prep"]
+    + 2 * ["sdp.device_prep", "sdp.device_prep", "sdp.device_prep",
+           "sdp.wkernel", "sdp.kernel.wproj_grid", "sdp.finish"],
 }
 # reads from the device: IDG-AW's distinct-pair count, then the dropped
 # count, then the image maximum or the prediction's peak (w-projection
@@ -79,11 +96,16 @@ CHILDREN = {
 # card first its distinct-pair count
 READS = {"idg_image": 2, "idg_predict_vis": 2, "aw_idg_image": 3,
          "aw_predict_vis": 3, "w_image": 1, "w_predict_vis": 1,
-         "aw_image": 1}
+         "aw_image": 1, "psf_image": 0}
 READS_ON_CARD = dict(READS, aw_image=2)
 # counts of a root beside records and h2d_bytes: the pair table of fused
-# AW (none on the CPU, whose plain scatter builds no table)
-OWN_COUNTS = {"aw_image": {"aw_pairs": 0, "aw_table_bytes": 0}}
+# AW (none on the CPU, whose plain scatter builds no table); the w-kernel
+# planes and padded-stack bytes of psf_image's two banks
+OWN_COUNTS = {"aw_image": {"aw_pairs": 0, "aw_table_bytes": 0},
+              "psf_image": {"wkernel_planes": 2 * PSF_PLANES,
+                            "wkernel_bytes": 2 * PSF_PLANES * 2048 ** 2 * 8}}
+# hand-kernel launches a call: psf_image scatters the image and the PSF
+LAUNCHES = {"psf_image": 2}
 ENTRIES = sorted(CHILDREN)
 
 
@@ -121,6 +143,7 @@ def _call(name, inp, device="cpu"):
             vd, inp["bank"], inp["centers"], inp["model"], **kw),
         "aw_image": lambda: ds.aw_image(vd, inp["bank"], inp["centers"],
                                         inp["akerns7"], **kw),
+        "psf_image": lambda: ds.psf_image(vd, "wcache", **PSF_KW, **kw),
     }[name]()
 
 
@@ -130,10 +153,13 @@ def _h2d_bytes(name, inp):
     (the IDG-AW entries' stamps, a strided view, through their span of the
     stamps), uvw, the visibilities (images) or the model (predicts), the
     A-kernel stamps and the antenna ids (A-terms), the bank and its
-    centres (w-projection, fused AW); the frequency's 4 bytes the pageable
-    way."""
+    centres (w-projection, fused AW), the antenna ids and times
+    (``psf_image``, which hands them to its imaging function); the
+    frequency's 4 bytes the pageable way."""
     vd = inp["vd"]
     arrays = [vd.uvw, vd.vis if name.endswith("image") else inp["model"]]
+    if name == "psf_image":
+        arrays += [vd.antenna1, vd.antenna2, vd.time]
     if name.startswith("aw_"):
         arrays += [inp["akerns7" if name == "aw_image" else "akerns"],
                    vd.antenna1, vd.antenna2]
@@ -203,6 +229,22 @@ def test_only_host_only_spans_enter_the_profiler(inputs, name):
     seen = {e.name for e in prof.events() if e.name.startswith("sdp.")}
     assert seen and seen <= HOST_ONLY
     assert seen <= {s.name for s in log}
+
+
+@pytest.mark.parametrize("w_range, reads", [(None, 1), ((-2000.0, 0.0), 0)])
+def test_w_cache_bins_reads_the_extent_only_without_a_range(inputs, w_range,
+                                                             reads):
+    """The extent's read, where there is one, sits between the two device
+    preps of the arithmetic, not inside either."""
+    uvw = torch.as_tensor(inputs["vd"].uvw) * 0.5
+    (centers, _), log, _ = _profiled(
+        lambda: imaging.w_cache_bins(uvw, 2000.0, w_range))
+    assert [s.name for s in log] == (["sdp.device_prep"]
+                                     + ["sdp.readback"] * reads
+                                     + ["sdp.device_prep"])
+    assert all(s.parent is None for s in log)
+    if w_range is not None:
+        assert list(centers) == [-2000.0, 0.0]
 
 
 def test_aw_records_tables_reads_its_pair_count_once():
@@ -431,7 +473,8 @@ def test_on_the_card_counts_launches_and_bytes(name, cuda):
     before = sum(timing.COUNTERS.group("launches/").values())
     _, log, prof = _profiled(lambda: _call(name, inputs, cuda))
     root = next(s for s in log if s.parent is None)
-    assert sum(timing.COUNTERS.group("launches/").values()) - before == 1
+    assert sum(timing.COUNTERS.group("launches/").values()) - before \
+        == LAUNCHES.get(name, 1)
     assert (root.counts["h2d_bytes"], root.counts["h2d_registered_bytes"]) \
         == _h2d_bytes(name, inputs)
     assert sum(1 for s in log if s.name == "sdp.readback") \
@@ -441,5 +484,8 @@ def test_on_the_card_counts_launches_and_bytes(name, cuda):
         pairs = len(set(zip(vd.antenna1.tolist(), vd.antenna2.tolist())))
         assert root.counts["aw_pairs"] == pairs
         assert root.counts["aw_table_bytes"] == pairs * 16 * 16 * 8
+    if name == "psf_image":
+        for k, v in OWN_COUNTS[name].items():
+            assert root.counts[k] == v
     seen = {e.name for e in prof.events() if e.name.startswith("sdp.")}
     assert seen <= HOST_ONLY
