@@ -9,7 +9,7 @@ even subgrid, the bank w-projection scatter, which also serves ``--mode
 conv`` and ``wcache`` and every slab of a checkpointed or streamed run,
 and gather, the fused AW gridder).
 
-    python3 chip_smoke.py [--crowded]
+    python3 chip_smoke.py [--crowded | --synth]
 
 Phases (each failure raises; the script then exits non-zero and prints no
 result line):
@@ -18,9 +18,9 @@ result line):
    card's name and power limit as ``nvidia-smi`` reports them;
 2. build: compile ``ska_sdp_tpu_torch/csrc/idg_grid.cu``,
    ``csrc/idg_degrid.cu``, ``csrc/wproj_grid.cu``, ``csrc/wproj_degrid.cu``
-   and ``csrc/aw_grid.cu`` with nvcc for sm_90a, one nvcc each, all started
-   together; print the gridder's build time and the ptxas resource use of
-   its S = 32, 64 and 128 instances;
+   ``csrc/aw_grid.cu`` and ``csrc/wkernel_synth.cu`` with nvcc for sm_90a,
+   one nvcc each, all started together; print the gridder's build time and
+   the ptxas resource use of its S = 32, 64 and 128 instances;
 3. gridder parity on the card against the plain PyTorch version on the
    same inputs: a mid-size IDG-AW case (512² grid, S=64, 16 antennas of
    track data, random screens), the same records at S=32 (support 7) and
@@ -86,7 +86,8 @@ result line):
     over many warps of the scatter and many blocks of the gather);
 13. w-projection main paths on phase 4's observation with a 32-plane,
     qpx=8, 15² bank (npix_ff=256) for its w range, built on the card by
-    ``ops/wkernel``, each with the launch counts reset just before:
+    ``ops/wkernel`` (in float64, through ``csrc/wkernel_synth.cu``), each
+    with the launch counts reset just before:
     ``w_image`` (finite, at least one scatter launch, the peak at a
     source, every source's 5×5 window above 0.25·max, rel-L2 ≤ 1e-4
     against the same pipeline on the plain scatter) and ``w_predict_vis``
@@ -199,12 +200,17 @@ result line):
     ``do_imaging``, default ``wstep``) on phase 4's observation, each with
     the launch counts reset just before: a finite image and PSF, the PSF's
     peak 1 after the normalisation; ``simple`` runs no hand-written kernel
-    (no scatter launch) and has its peak at a source; ``conv`` and
-    ``wcache`` launch the bank scatter twice (image and PSF), each launch
-    within 5e-5 of the plain scatter on its inputs, and the image and PSF
-    within 1e-4 of the same entry on the plain scatter; the bank's plane
-    count, the scatter's time on the image launch's records beside its
-    plain version and its bound, and each mode's time end to end;
+    (no scatter or synthesis launch) and has its peak at a source; ``conv``
+    and ``wcache`` launch the bank scatter twice (image and PSF), each
+    launch within 5e-5 of the plain scatter on its inputs, and the w-kernel
+    synthesis (``csrc/wkernel_synth.cu``) once (``conv``) or twice
+    (``wcache``), each launch within 2e-6 of its plain version on its
+    screens; the image and PSF within 1e-4 of the same entry on the plain
+    scatter and synthesis; the bank's plane count, the scatter's and the
+    synthesis's times on the image's inputs beside their plain versions
+    and bounds (the synthesis also beside pad + cuFFT), and each mode's
+    time end to end.  The ``kernels`` line's synthesis entries take their
+    launches from these calls;
 28. the staged drivers of ``--device-phases`` in memory on phase 4's
     observation (``runs.wproj_staged`` and ``runs.aw_fused_staged`` with phase
     13's bank and phase 17's A-kernels, ``runs.aw_idg_staged`` at S=64 with
@@ -299,7 +305,18 @@ result line):
     and 20 runs hold; #1 and #2 alone, each timed with CUDA events (median
     of 7), within 5e-5 of its plain version, with its work items (item
     length, items, runs split) and the split counts the kernel made equal
-    to those of the plain items (``run_items``).
+    to those of the plain items (``run_items``);
+40. w-kernel synthesis (``python3 chip_smoke.py --synth`` runs it alone,
+    after building its kernel): ``csrc/wkernel_synth.cu`` on the benchmark
+    cell ``wcache.psf``'s bank (33 planes over ±1,920 λ, θ = 0.054, a 256²
+    screen, qpx 8, support 15) in complex64 and complex128, against
+    ``ops.wkernel.w_kernel_taps_plain`` and against the padded transform
+    (pad, centred cuFFT, extract) on the card, rel-L2 ≤ 2e-6 (complex64)
+    and ≤ 1e-12 (complex128) each, the conjugated taps equal to the taps'
+    conjugate; each timed with CUDA events (median of 7): the kernel, the
+    plain version and the padded transform (``library_ms``), beside the
+    bound (operations over 67 TFLOP/s, bytes over 3.35 TB/s) and the
+    kernel's launches, printed only.
 
 Each of phases 31-35 prints its wall time (median of 3 synchronised
 calls), its launches, the time of one ``all_reduce`` of the
@@ -752,7 +769,7 @@ def main() -> int:
         return time.perf_counter() - t
 
     kernels_cu = ("idg_grid", "idg_degrid", "wproj_grid", "wproj_degrid",
-                  "aw_grid")
+                  "aw_grid", "wkernel_synth")
     pool = ThreadPoolExecutor(max_workers=len(kernels_cu))
     builds = {k: pool.submit(build, k) for k in kernels_cu}
     pool.shutdown(wait=False)
@@ -935,7 +952,7 @@ def main() -> int:
     print_ptxas(_build.build_log, "idg_degrid", padded=False)
     degrid, model, truth = degrid_phases(torch, dev, card, mid, vd, obs,
                                          k_full)
-    for k in ("wproj_grid", "wproj_degrid"):
+    for k in ("wproj_grid", "wproj_degrid", "wkernel_synth"):
         print(f"build: {k}.cu for sm_90a in {builds[k].result():.1f} s "
               "(started with idg_grid.cu)")
         print_ptxas(_build.build_log, k)
@@ -957,6 +974,7 @@ def main() -> int:
     scale = scaleout_phases(torch, dev, card, vd, obs, model)
     edges = edge_phases(torch, dev, card, vd, obs)
     crowded_phase(torch, dev, card)
+    synth_phase(torch, dev, card)
 
     print(json.dumps({"kernels": [{
         "name": stream.GRID_KERNEL,
@@ -1595,8 +1613,9 @@ def wproj_phases(torch, dev, card, vd, obs, img_idg, model, truth):
         t = timed_ms(torch, fn)
         print(f"time {label}: {t:.3f} ms = {n_vis / t / 1e3:.2f} M vis/s "
               f"[{card}]")
-    print(f"time bank build (32 planes, 2048² far field, float64): "
-          f"{timed_ms(torch, build_bank):.3f} ms [{card}]")
+    print(f"time bank build (32 planes, 256² screens through "
+          f"wkernel_synth.cu, float64): {timed_ms(torch, build_bank):.3f} ms "
+          f"[{card}]")
 
     # bounds from this run's inputs: 8 flops per in-bounds tap, and the
     # wrapper's inputs read once and its output written once
@@ -2125,13 +2144,16 @@ def tile_phases(torch, dev, card, vd, obs, img64, model, truth):
 @contextlib.contextmanager
 def plain_kernels(torch):
     """Route the cube entries (``models/spectral.py``), the IDG-AW entries
-    (``kernels.idg_aw_gridder`` and ``idg_aw_degridder``) and the imaging
-    functions of ``models/imaging.py`` through the plain versions of their
-    kernels, on the tensors' own device."""
+    (``kernels.idg_aw_gridder`` and ``idg_aw_degridder``), the imaging
+    functions of ``models/imaging.py`` and the w-kernel synthesis
+    (``ops.wkernel.w_kernel`` on the card) through the plain versions of
+    their kernels, on the tensors' own device."""
     from ska_sdp_tpu_torch.kernels import idg_aw_stream as stream
+    from ska_sdp_tpu_torch.kernels import wkernel_synth as synth
     from ska_sdp_tpu_torch.models import imaging
     from ska_sdp_tpu_torch.models import spectral as sp
     from ska_sdp_tpu_torch.ops.gridding import convgrid_wproj
+    from ska_sdp_tpu_torch.ops.wkernel import w_kernel_taps_plain
 
     def streamed(recs, st, en, y0, x0, i1, i2, shape, scr, *, theta,
                  subgrid, taper_beta):
@@ -2160,7 +2182,8 @@ def plain_kernels(torch):
                (sp, "wproj_gridder", scatter),
                (stream, "idg_aw_grid_from_records_stream", streamed),
                (stream, "idg_aw_degrid_from_records_stream", degrid),
-               (imaging, "wproj_gridder", scatter))
+               (imaging, "wproj_gridder", scatter),
+               (synth, "wkernel_synth", w_kernel_taps_plain))
     saved = [getattr(mod, k) for mod, k, _ in patches]
     for mod, k, fn in patches:
         setattr(mod, k, fn)
@@ -2611,37 +2634,54 @@ def psf_phases(torch, dev, card, vd, obs):
     """Phase 27: the PSF-normalised imaging (``do_imaging``) of ``--mode
     simple``, ``conv`` and ``wcache`` on the main path's observation
     ``vd``/``obs``.  Returns the bank scatter's entries of the ``kernels``
-    line for ``conv`` and ``wcache``."""
+    line for ``conv`` and ``wcache``, and the w-kernel synthesis's, each
+    with its launches in that main-path call."""
+    from ska_sdp_tpu_torch.kernels import wkernel_synth as synth
     from ska_sdp_tpu_torch.kernels import wproj
     from ska_sdp_tpu_torch.models import dataset as ds
     from ska_sdp_tpu_torch.models import imaging
+    from ska_sdp_tpu_torch.ops.fourier import ifft_centered, pad_mid
     from ska_sdp_tpu_torch.ops.gridding import convgrid_wproj
+    from ska_sdp_tpu_torch.ops.wkernel import (extract_oversampled,
+                                               w_kernel_taps_plain)
 
     n_vis = vd.vis.shape[0]
     kw = dict(theta=THETA, lam=LAM, device=dev)
     real_gridder = imaging.wproj_gridder
     entries = []
+    # the synthesis's launches a call: a bank for the image and another for
+    # the PSF in wcache, conv's one kernel, none in simple
+    synth_expected = {"simple": 0, "conv": 1, "wcache": 2}
     for mode in ("simple", "conv", "wcache"):
-        calls = []
+        calls, synth_calls = [], []
 
-        def spy(bank, shape, p, wbin, vis, chunk):
+        def grid_spy(bank, shape, p, wbin, vis, chunk):
             out = real_gridder(bank, shape, p, wbin, vis, chunk=chunk)
             calls.append((bank, shape, p, wbin, vis, out))
             return out
 
         wproj.reset_launch_count()
-        imaging.wproj_gridder = spy
+        synth.reset_launch_count()
+        imaging.wproj_gridder = grid_spy
         try:
-            res = ds.psf_image(vd, mode, **kw)
+            with spy(synth, "wkernel_synth", synth_calls):
+                res = ds.psf_image(vd, mode, **kw)
             torch.cuda.synchronize()
         finally:
             imaging.wproj_gridder = real_gridder
         launches = wproj.launch_count(wproj.GRID_KERNEL)
+        synth_launches = synth.launch_count()
         img = res.image.cpu().numpy()
         n = img.shape[0]
         print(f"do_imaging main path: --mode {mode} {n}² from "
               f"{n_vis} vis, PSF peak {float(res.pmax):.6g}, image max "
-              f"{img.max():.6g}, bank scatter launches {launches}")
+              f"{img.max():.6g}, bank scatter launches {launches}, "
+              f"launches/wkernel_synth {synth_launches}")
+        if synth_launches != synth_expected[mode] \
+                or len(synth_calls) != synth_launches:
+            raise AssertionError(f"--mode {mode}: {synth_launches} "
+                                 f"w-kernel synthesis launches, not "
+                                 f"{synth_expected[mode]}")
         if not (np.isfinite(img).all()
                 and torch.isfinite(res.psf).all()):
             raise AssertionError(f"--mode {mode}: non-finite image or PSF")
@@ -2664,6 +2704,13 @@ def psf_phases(torch, dev, card, vd, obs):
             on, rn = out.cpu().numpy(), ref.cpu().numpy()
             errs.append(rel_l2(on, rn))
             max_abs = max(max_abs, float(np.abs(on - rn).max()))
+        s_errs, s_max = [], 0.0
+        for args, kwargs, out in synth_calls:
+            ref = w_kernel_taps_plain(*args, **kwargs)
+            on, rn = out.cpu().numpy(), ref.cpu().numpy()
+            s_errs.append(rel_l2(on, rn))
+            s_max = max(s_max, float(np.abs(on - rn).max()))
+        s_tol = SYNTH_TOL[str(synth_calls[0][2].dtype).split(".")[-1]]
         with plain_kernels(torch):
             ref = ds.psf_image(vd, mode, **kw)
         err_img = rel_l2(img, ref.image.cpu().numpy())
@@ -2673,10 +2720,15 @@ def psf_phases(torch, dev, card, vd, obs):
               f"{'s' if bank.shape[0] > 1 else ''}); each launch vs the "
               f"plain scatter on its inputs rel-L2 "
               f"{', '.join(f'{e:.3e}' for e in errs)} (bound {KERNEL_TOL}); "
-              f"image and PSF vs the same entry on the plain scatter rel-L2 "
-              f"{err_img:.3e}, {err_psf:.3e} (bound {IMAGE_TOL})")
+              f"each synthesis vs the plain version on its screens rel-L2 "
+              f"{', '.join(f'{e:.3e}' for e in s_errs)} (bound {s_tol}); "
+              f"image and PSF vs the same entry on the plain scatter and "
+              f"synthesis rel-L2 {err_img:.3e}, {err_psf:.3e} (bound "
+              f"{IMAGE_TOL})")
         if max(errs) > KERNEL_TOL:
             raise AssertionError(f"--mode {mode} scatter parity: {errs}")
+        if max(s_errs) > s_tol:
+            raise AssertionError(f"--mode {mode} synthesis parity: {s_errs}")
         if not (err_img <= IMAGE_TOL and err_psf <= IMAGE_TOL):
             raise AssertionError(f"--mode {mode} do_imaging parity: {err_img}, "
                                  f"{err_psf}")
@@ -2708,6 +2760,29 @@ def psf_phases(torch, dev, card, vd, obs):
             "launches": launches, "max_abs_err": max_abs, "ms": t_k,
             "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None})
+
+        # the synthesis of the image's bank: the kernel, its plain version
+        # and the padded transform (pad, centred cuFFT, extract) it replaces
+        (scr, qpx, s), skw, sout = synth_calls[0]
+        t_s = timed_ms(torch, lambda: synth.wkernel_synth(scr, qpx, s, **skw))
+        t_sp = timed_ms(torch, lambda: w_kernel_taps_plain(scr, qpx, s,
+                                                           **skw))
+        t_sl = timed_ms(torch, lambda: extract_oversampled(ifft_centered(
+            pad_mid(scr, scr.shape[-1] * qpx)), qpx, s))
+        sb_ms, sb_by = bound(synth_flop(*scr.shape[:2], qpx * s),
+                             nbytes(scr, sout))
+        print(f"time --mode {mode} synthesis kernel (CUDA, {scr.shape[0]} "
+              f"planes, {scr.shape[-1]}² screens, qpx {qpx}, support {s}): "
+              f"{t_s:.3f} ms, plain (PyTorch) {t_sp:.3f} ms, pad + cuFFT "
+              f"{t_sl:.3f} ms; bound {sb_ms:.4f} ms ({sb_by}) [{card}]")
+        entries.append({
+            "name": f"{synth.KERNEL} (do_imaging {mode})", "route": "cuda",
+            "source": "ska_sdp_tpu_torch/csrc/wkernel_synth.cu",
+            "replaces": "none: XLA's pad and FFT in "
+                        "ska_sdp_tpu/ops/wkernel.py::w_kernel",
+            "launches": synth_launches, "max_abs_err": s_max, "ms": t_s,
+            "plain_ms": t_sp, "bound_ms": sb_ms, "bound_by": sb_by,
+            "library_ms": t_sl})
     for mode in ("simple", "conv", "wcache"):
         t = timed_ms(torch, lambda: ds.psf_image(vd, mode, **kw))
         print(f"time do_imaging --mode {mode} end to end (image + PSF): "
@@ -3817,6 +3892,97 @@ def crowded_main() -> int:
     return 0
 
 
+SYNTH_TOL = {"complex64": 2e-6, "complex128": 1e-12}
+
+
+def synth_flop(nw, n0, rows):
+    """The pruned transform's operations: ``n0·rows·n0`` complex
+    multiply-adds along x and ``rows·rows·n0`` along y a plane, 8 each."""
+    return 8 * nw * (n0 * rows * n0 + rows * rows * n0)
+
+
+def synth_phase(torch, dev, card):
+    """Phase 40: ``csrc/wkernel_synth.cu`` on ``wcache.psf``'s bank (33
+    planes over ±1,920 λ at θ = 0.054, 256/8/15) in complex64 and
+    complex128: parity with the plain version and with the padded
+    transform on the card, the conjugation flag, each timed (median of 7)
+    beside the bound, printed (the ``kernels`` line takes the kernel's
+    entries from the main path, phase 27)."""
+    from ska_sdp_tpu_torch.config import KernelOptions
+    from ska_sdp_tpu_torch.kernels import wkernel_synth as synth
+    from ska_sdp_tpu_torch.ops.fourier import ifft_centered, pad_mid
+    from ska_sdp_tpu_torch.ops.wkernel import (extract_oversampled,
+                                               kernel_coordinates,
+                                               w_kernel_function,
+                                               w_kernel_taps_plain)
+
+    opts = KernelOptions(qpx=8, npix_ff=256, npix_kern=15)
+    n0, qpx, s = opts.npix_ff, opts.qpx, opts.npix_kern
+    centres = -1920.0 + 120.0 * np.arange(33)
+    for real in (torch.float32, torch.float64):
+        l, m = kernel_coordinates(n0, 0.054, opts, dtype=real, device=dev)
+        scr = w_kernel_function(l, m, torch.as_tensor(centres, dtype=real,
+                                                      device=dev))
+        synth.reset_launch_count()
+        got = synth.wkernel_synth(scr, qpx, s)
+        got_c = synth.wkernel_synth(scr, qpx, s, conj=True)
+        torch.cuda.synchronize()
+        launches = synth.launch_count()
+
+        def library():
+            return extract_oversampled(ifft_centered(pad_mid(scr, n0 * qpx)),
+                                       qpx, s)
+        plain = w_kernel_taps_plain(scr, qpx, s)
+        lib = library()
+        g = got.cpu().numpy()
+        err_p = rel_l2(g, plain.cpu().numpy())
+        err_l = rel_l2(g, lib.cpu().numpy())
+        max_abs = float(np.abs(g - lib.cpu().numpy()).max())
+        conj_ok = torch.equal(got_c, got.conj().resolve_conj())
+        tol = SYNTH_TOL[str(scr.dtype).split(".")[-1]]
+        ms = timed_ms(torch, lambda: synth.wkernel_synth(scr, qpx, s))
+        ms_plain = timed_ms(torch, lambda: w_kernel_taps_plain(scr, qpx, s))
+        ms_lib = timed_ms(torch, library)
+        nw = scr.shape[0]
+        flop = synth_flop(nw, n0, qpx * s)
+        bound_ms, bound_by = bound(flop, nbytes(scr, got))
+        print(f"w-kernel synthesis, {scr.dtype} ({nw} planes, {n0}² screens,"
+              f" qpx {qpx}, support {s}; {flop / 1e9:.2f} GFLOP): kernel "
+              f"{ms:.3f} ms, plain {ms_plain:.3f} ms, pad + cuFFT "
+              f"(library_ms) {ms_lib:.3f} ms; bound {bound_ms:.4f} ms "
+              f"({bound_by}); "
+              f"rel-L2 {err_p:.2e} from the plain version, {err_l:.2e} from "
+              f"pad + cuFFT (bound {tol}), max |err| {max_abs:.2e}; "
+              f"conjugated taps equal: {conj_ok}; launches/wkernel_synth "
+              f"{launches} [{card}]")
+        if not (err_p <= tol and err_l <= tol and conj_ok and launches == 2):
+            raise AssertionError(f"w-kernel synthesis ({scr.dtype}): "
+                                 f"{err_p}, {err_l}, {conj_ok}, {launches}")
+
+
+def synth_main() -> int:
+    """``--synth``: phase 40 alone, after building its kernel."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("error: no CUDA device visible; this smoke test runs only on "
+              "a GPU", file=sys.stderr)
+        return 1
+    from ska_sdp_tpu_torch.kernels import _build
+
+    card = smi()
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device "
+          f"{torch.cuda.get_device_name(0)}; nvidia-smi: {card}")
+    t = time.perf_counter()
+    _build.load("wkernel_synth")
+    print(f"build: wkernel_synth.cu for sm_90a in "
+          f"{time.perf_counter() - t:.1f} s")
+    print_ptxas(_build.build_log, "wkernel_synth")
+    synth_phase(torch, torch.device("cuda", 0), card)
+    print(card)
+    return 0
+
+
 def hdf5_phase(torch, dev, card, vd, obs):
     """Phase 38: the CLI's ``--mode idg`` file entry on the card through
     the native HDF5 backend, where the card's machine has an HDF5 1.10
@@ -3893,4 +4059,5 @@ def hdf5_phase(torch, dev, card, vd, obs):
 
 
 if __name__ == "__main__":
-    sys.exit(crowded_main() if sys.argv[1:] == ["--crowded"] else main())
+    sys.exit({"--crowded": crowded_main, "--synth": synth_main}.get(
+        " ".join(sys.argv[1:]), main)())

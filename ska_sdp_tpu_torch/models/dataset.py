@@ -876,7 +876,8 @@ def psf_image(vis_data: VisData, mode: str, *, theta: float = 0.008,
     hand-written kernel.  ``n`` caps the record count.  The root span's
     ``wkernel_planes`` and ``wkernel_bytes`` count the w-kernel planes
     synthesised in the call (``wcache`` builds its bank twice: for the
-    image and for the PSF) and the bytes of their zero-padded stacks."""
+    image and for the PSF) and the bytes of the screens they were
+    transformed from (``imaging.w_cache_imaging``)."""
     prec = _precision(precision)
     with _entry("psf_image", vis_data, n, wkernel_planes=0,
                 wkernel_bytes=0):

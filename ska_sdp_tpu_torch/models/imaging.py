@@ -96,7 +96,8 @@ def w_cache_imaging(theta: float, lam: int, uvw: torch.Tensor, src,
     (``ops.wkernel.w_kernel_bank`` in the visibilities' real precision on
     their device, built anew on every call), and the bank scatter.  The
     open spans count the planes synthesised (``wkernel_planes``) and the
-    bytes of their zero-padded stacks (``wkernel_bytes``)."""
+    bytes of the ``npix_ff``² screens they were transformed from
+    (``wkernel_bytes``)."""
     real = vis.real.dtype
     centers, wbin = w_cache_bins(uvw, opts.wstep, w_range)
     with span("sdp.device_prep"):
@@ -106,7 +107,7 @@ def w_cache_imaging(theta: float, lam: int, uvw: torch.Tensor, src,
             len(centers), dtype=torch.float64, device=vis.device)).to(real)
     bank = w_kernel_bank(theta, w, opts, dtype=real, device=vis.device)
     add("wkernel_planes", len(centers))
-    add("wkernel_bytes", len(centers) * (opts.npix_ff * opts.qpx) ** 2
+    add("wkernel_bytes", len(centers) * opts.npix_ff ** 2
         * bank.element_size())
     n = int(round(theta * lam))
     return wproj_gridder(bank, (n, n), uvw / lam, wbin, vis, chunk=chunk)

@@ -12,8 +12,9 @@
   ``aw_table_bytes``), whose distinct-pair count the host reads once
   between two device preps; ``psf_image``'s root (mode ``wcache`` with a
   fixed w range) counts the w-kernel planes synthesised, a bank for the
-  image and another for the PSF, and the bytes of their padded stacks
-  (``wkernel_planes``, ``wkernel_bytes``), and reads nothing back;
+  image and another for the PSF, and the bytes of the screens they were
+  transformed from (``wkernel_planes``, ``wkernel_bytes``), and reads
+  nothing back;
   ``w_cache_bins`` reads the data's extent in one readback, and only
   without a range;
 * only ``host_only`` spans enter the profiler's timeline;
@@ -100,12 +101,14 @@ READS = {"idg_image": 2, "idg_predict_vis": 2, "aw_idg_image": 3,
 READS_ON_CARD = dict(READS, aw_image=2)
 # counts of a root beside records and h2d_bytes: the pair table of fused
 # AW (none on the CPU, whose plain scatter builds no table); the w-kernel
-# planes and padded-stack bytes of psf_image's two banks
+# planes of psf_image's two banks and the bytes of the 256² screens they
+# were transformed from
 OWN_COUNTS = {"aw_image": {"aw_pairs": 0, "aw_table_bytes": 0},
               "psf_image": {"wkernel_planes": 2 * PSF_PLANES,
-                            "wkernel_bytes": 2 * PSF_PLANES * 2048 ** 2 * 8}}
-# hand-kernel launches a call: psf_image scatters the image and the PSF
-LAUNCHES = {"psf_image": 2}
+                            "wkernel_bytes": 2 * PSF_PLANES * 256 ** 2 * 8}}
+# hand-kernel launches a call: psf_image synthesises and scatters the image
+# and the PSF
+LAUNCHES = {"psf_image": 4}
 ENTRIES = sorted(CHILDREN)
 
 
